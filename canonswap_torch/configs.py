@@ -2,12 +2,17 @@
 
 The fields of ``canonswap_tpu/configs/model_config.py`` (the reference's
 ``models.yaml``) that the ported networks read, with the same names, defaults
-and presets; ``tests/test_torch_configs.py`` holds them equal.  The JAX
-package's TPU layout and int8 options have no counterpart here.  Nor have
-the options that select another network than the shipped checkpoint's: the
-port runs dense motion at full resolution (``dense_motion_scale=1``), always
-estimates the occlusion map and always ends the decoder in the 2x
-pixel-shuffle head (``upscale=2``).
+and presets; ``tests/test_torch_configs.py`` holds them equal.  The fast
+bundle's options are here: ``WarpingConfig.dense_motion_scale`` and the
+``int8_conv`` flags of appearance, swap and SPADE, with the JAX names, plus
+``WarpingConfig.warp_quant``, the port's name for the JAX ``warp_impl``
+value ``"pallas_quant"`` (the W8A8 warp); :func:`fast_bundle` sets them as
+the JAX session does.  The JAX package's TPU layouts and backends have no
+counterpart here, nor have the options the fast bundle leaves off
+(``DenseMotionConfig.int8_conv``, ``SpadeConfig.norm_scale``,
+``spectral_norm``) or that select another network than the shipped
+checkpoint's: the port always estimates the occlusion map and always ends
+the decoder in the 2x pixel-shuffle head (``upscale=2``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ class AppearanceConfig:
     reshape_channel: int = 32
     reshape_depth: int = 16
     num_resblocks: int = 6
+    int8_conv: bool = False  # W8A8 3D resblock chain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +56,9 @@ class WarpingConfig:
     max_features: int = 512
     num_down_blocks: int = 2
     reshape_channel: int = 32
+    # >1: dense motion at 1/N in-plane resolution, field upsampled back
+    dense_motion_scale: int = 1
+    warp_quant: bool = False  # the W8A8 warp (JAX warp_impl="pallas_quant")
     dense_motion: DenseMotionConfig = dataclasses.field(
         default_factory=DenseMotionConfig)
 
@@ -60,6 +69,7 @@ class SpadeConfig:
     max_features: int = 512
     num_down_blocks: int = 2
     out_channels: int = 64
+    int8_conv: bool = False  # W8A8 convs of G_middle_* and up_0, gated
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +77,8 @@ class SwapConfig:
     latent_dim: int = 512
     n_blocks: int = 7  # adaptive 2D blocks
     n_resblocks_3d: int = 6
+    # W8A8 adaptive convs (gated) and 3D chain; refine takes this flag too
+    int8_conv: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,3 +114,18 @@ TINY = CanonSwapModelConfig(
     input_size=64,
     output_size=128,
 )
+
+
+def fast_bundle(cfg: CanonSwapModelConfig) -> CanonSwapModelConfig:
+    """``cfg`` with the JAX session's fast bundle (``InferenceConfig``
+    ``dense_motion_scale=2, flag_int8=True``, ``pipelines/session.py``):
+    half-resolution dense motion, W8A8 convs in appearance, swap (and so
+    refine) and SPADE, and the W8A8 warp.  Same parameter tree as ``cfg``."""
+    rep = dataclasses.replace
+    return rep(
+        cfg,
+        warping=rep(cfg.warping, dense_motion_scale=2, warp_quant=True),
+        appearance=rep(cfg.appearance, int8_conv=True),
+        swap=rep(cfg.swap, int8_conv=True),
+        spade=rep(cfg.spade, int8_conv=True),
+    )

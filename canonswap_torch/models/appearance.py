@@ -30,8 +30,8 @@ class AppearanceFeatureExtractor(nn.Module):
             cfg.max_features, 1)
         self.resblocks_3d = nn.Sequential()
         for i in range(cfg.num_resblocks):
-            self.resblocks_3d.add_module(f"3dr{i}",
-                                         ResBlock3d(cfg.reshape_channel))
+            self.resblocks_3d.add_module(
+                f"3dr{i}", ResBlock3d(cfg.reshape_channel, cfg.int8_conv))
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
         """image: (B, 3, S, S) in [0, 1] -> (B, C, D, S/4, S/4)."""

@@ -3,6 +3,9 @@
 Port of ``canonswap_tpu/models/spade_decoder.py``: (B, 256, 64, 64) ->
 (B, 3, 512, 512) at CANONICAL.  The input feature is the SPADE segmap of
 every block; spectral norm is baked into the converted conv weights.
+``SpadeConfig.int8_conv`` makes the middle blocks and ``up_0`` W8A8 where
+their gates hold; ``up_1`` (at 4x the segmap's size) stays exact, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -21,9 +24,11 @@ class SPADEDecoder(nn.Module):
         super().__init__()
         ic = min(cfg.max_features, cfg.block_expansion * 2**cfg.num_down_blocks)
         self.fc = nn.Conv2d(ic, 2 * ic, 3, padding=1)
+        q = cfg.int8_conv
         for i in range(6):
-            setattr(self, f"G_middle_{i}", SPADEResnetBlock(2 * ic, 2 * ic, ic))
-        self.up_0 = SPADEResnetBlock(2 * ic, ic, ic)
+            setattr(self, f"G_middle_{i}",
+                    SPADEResnetBlock(2 * ic, 2 * ic, ic, q))
+        self.up_0 = SPADEResnetBlock(2 * ic, ic, ic, q)
         self.up_1 = SPADEResnetBlock(ic, cfg.out_channels, ic)
         self.conv_img = nn.Sequential(
             nn.Conv2d(cfg.out_channels, 3 * 4, 3, padding=1),

@@ -21,8 +21,10 @@ class AdaptiveConv2d(nn.Module):
     """Shared-weight conv blended with its ID-modulated twin through a
     learned mask."""
 
-    def __init__(self, in_features: int, features: int, latent_dim: int):
+    def __init__(self, in_features: int, features: int, latent_dim: int,
+                 int8: bool = False):
         super().__init__()
+        self.int8 = int8
         self.weight = nn.Parameter(torch.zeros(features, in_features, 3, 3))
         self.bias_param = nn.Parameter(torch.zeros(features))
         self.style_fc = nn.Sequential(
@@ -33,14 +35,15 @@ class AdaptiveConv2d(nn.Module):
 
     def forward(self, x, latent):
         return adaptive_blend_conv(x, self.weight, self.style_fc(latent),
-                                   self.mask_conv(x), self.bias_param)
+                                   self.mask_conv(x), self.bias_param,
+                                   int8=self.int8)
 
 
 class AdaptiveResBlock2d(nn.Module):
-    def __init__(self, features: int, latent_dim: int):
+    def __init__(self, features: int, latent_dim: int, int8: bool = False):
         super().__init__()
-        self.conv1 = AdaptiveConv2d(features, features, latent_dim)
-        self.conv2 = AdaptiveConv2d(features, features, latent_dim)
+        self.conv1 = AdaptiveConv2d(features, features, latent_dim, int8)
+        self.conv2 = AdaptiveConv2d(features, features, latent_dim, int8)
 
     def forward(self, x, latent):
         return x + self.conv2(F.relu(self.conv1(x, latent)), latent)
@@ -52,11 +55,13 @@ class SwapModule(nn.Module):
         reshape_channel / reshape_depth)."""
         super().__init__()
         self.BottleNeck_2d = nn.ModuleList(
-            AdaptiveResBlock2d(channels * depth, cfg.latent_dim)
+            AdaptiveResBlock2d(channels * depth, cfg.latent_dim,
+                               cfg.int8_conv)
             for _ in range(cfg.n_blocks))
         self.resblocks_3d = nn.Sequential()
         for i in range(cfg.n_resblocks_3d):
-            self.resblocks_3d.add_module(f"3dr{i}", ResBlock3d(channels))
+            self.resblocks_3d.add_module(
+                f"3dr{i}", ResBlock3d(channels, cfg.int8_conv))
 
     def forward(self, volume: torch.Tensor, id_latent: torch.Tensor):
         """volume: (B, C, D, H, W); id_latent: (B, latent_dim)."""

@@ -64,25 +64,34 @@ class CudaKernel:
         ).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.source.stem}_{key}.so"
 
+    def _start_build(self):
+        """Start nvcc on the source; returns what :meth:`_finish_build`
+        waits on."""
+        lib = self._library_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.stem}.tmp{os.getpid()}.so")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        return proc, tmp, lib, time.perf_counter()
+
+    def _finish_build(self, proc, tmp: Path, lib: Path, t0: float) -> None:
+        _, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {self.source.name} "
+                f"(exit {proc.returncode}):\n{stderr}")
+        os.replace(tmp, lib)  # atomic: concurrent builders race safely
+        self.build_seconds = time.perf_counter() - t0
+        self.build_log = stderr
+
     def load(self):
         """Build (if needed) and load the library; returns the C function."""
         if self._fn is not None:
             return self._fn
         lib = self._library_path()
         if not lib.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib.with_name(f"{lib.stem}.tmp{os.getpid()}.so")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
-                capture_output=True, text=True, check=False)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {self.source.name} "
-                    f"(exit {proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, lib)  # atomic: concurrent builders race safely
-            self.build_seconds = time.perf_counter() - t0
-            self.build_log = proc.stderr
+            self._finish_build(*self._start_build())
         self._lib = ctypes.CDLL(str(lib))
         fn = getattr(self._lib, self.symbol)
         fn.argtypes = self.argtypes
@@ -104,3 +113,22 @@ class CudaKernel:
             raise RuntimeError(
                 f"{self.symbol} failed to launch: CUDA error {err} {msg}")
         self.launches += 1
+
+
+def build_all(kernels) -> None:
+    """Build the kernels whose libraries are missing, one nvcc process per
+    source, all started at once, then load every one.  Every nvcc is waited
+    for before a failed build raises."""
+    pending = [k for k in kernels
+               if k._fn is None and not k._library_path().exists()]
+    started = [(k, k._start_build()) for k in pending]
+    errors = []
+    for k, build in started:
+        try:
+            k._finish_build(*build)
+        except RuntimeError as e:
+            errors.append(e)
+    if errors:
+        raise errors[0]
+    for k in kernels:
+        k.load()

@@ -1,9 +1,10 @@
-"""The trilinear warp: CUDA kernel wrapper and its plain PyTorch version.
+"""The trilinear warps: CUDA kernel wrappers and their plain versions.
 
-Replaces ``canonswap_tpu/ops/pallas/warp.py::grid_sample_3d_onehot``
-(``_kernel`` / ``_kernel_win``, quant=False).  The kernel is
-``canonswap_torch/csrc/warp3d.cu``; its header says what bounds it on the
-H100 and how its layout keeps corner reads coalesced.
+Replace ``canonswap_tpu/ops/pallas/warp.py::grid_sample_3d_onehot``
+(``_kernel`` / ``_kernel_win``): the exact form (quant=False) is
+``canonswap_torch/csrc/warp3d.cu``, the W8A8 form of the fast bundle
+(quant=True) ``canonswap_torch/csrc/warp3d_q.cu``.  Their headers say what
+bounds them on the H100 and how the layout keeps corner reads coalesced.
 
 Device rule: a CPU volume goes to :func:`grid_sample_3d_plain`; a CUDA volume
 launches the kernel or raises.  Nothing falls back.
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from canonswap_torch.ops.cuda.build import CudaKernel
+from canonswap_torch.ops.quant import INV127, quantize, sample_step
 
 _c_int = ctypes.c_int
 _c_ptr = ctypes.c_void_p
@@ -25,6 +27,11 @@ WARP3D = CudaKernel(
     "warp3d.cu", "warp3d_forward",
     [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int,
      _c_int, _c_int, _c_int, _c_ptr],
+)
+
+WARP3D_Q = CudaKernel(
+    "warp3d_q.cu", "warp3d_q_forward",
+    [_c_ptr] * 5 + [_c_int] * 7 + [_c_ptr],
 )
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -41,8 +48,8 @@ def grid_sample_3d_plain(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     return out.to(vol.dtype)
 
 
-def grid_sample_3d_cuda(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on ``vol`` / ``grid`` (both on one card)."""
+def _check_cuda_args(vol: torch.Tensor, grid: torch.Tensor) -> None:
+    """Raise on what the warp kernels do not take."""
     if not (vol.is_cuda and grid.is_cuda and vol.device == grid.device):
         raise ValueError(
             f"warp3d needs vol and grid on one CUDA device, got {vol.device} "
@@ -63,6 +70,14 @@ def grid_sample_3d_cuda(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     p = do * ho * wo
     if max(c * d * h * w, p) >= 2**31:
         raise ValueError("warp3d: a plane or point count over 2**31")
+
+
+def grid_sample_3d_cuda(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on ``vol`` / ``grid`` (both on one card)."""
+    _check_cuda_args(vol, grid)
+    b, c, d, h, w = vol.shape
+    do, ho, wo = grid.shape[1:4]
+    p = do * ho * wo
     out = torch.empty((b, c, do, ho, wo), dtype=vol.dtype, device=vol.device)
     if out.numel() == 0:
         return out
@@ -84,3 +99,83 @@ def grid_sample_3d(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     if vol.device.type == "cpu" and grid.device.type == "cpu":
         return grid_sample_3d_plain(vol, grid)
     return grid_sample_3d_cuda(vol, grid)
+
+
+def _taps(g: torch.Tensor, size: int):
+    """One axis, as the JAX kernel computes it: the coordinate
+    ((g + 1) * size - 1) * 0.5, the two taps floor(c) and floor(c) + 1 (as
+    f32), their tents max(0, 1 - |a - c|) and whether each is inside."""
+    c = ((g + 1.0) * size - 1.0) * 0.5
+    a0 = torch.floor(c)
+    a1 = a0 + 1.0
+    taps = []
+    for a in (a0, a1):
+        tent = torch.clamp(1.0 - (a - c).abs(), min=0.0)
+        taps.append((a, tent, (a >= 0) & (a <= size - 1)))
+    return taps
+
+
+def grid_sample_3d_quant_plain(vol: torch.Tensor,
+                               grid: torch.Tensor) -> torch.Tensor:
+    """The W8A8 kernel's function in plain PyTorch (an explicit 8-corner
+    gather, not ``F.grid_sample``, whose weights are formed differently).
+
+    Per sample, the volume is quantized with the step max|vol|/127 + 1e-12;
+    each in-volume xy corner gets the int8 weight round(127 t_y t_x); per
+    in-volume z tap the integer sum is dequantized with step * f32(1/127)
+    and weighted by the z tent in f32.  The integer sums are exact in f32
+    (at most 4 * 127**2 < 2**24).
+
+    vol: (B, C, D, H, W); grid: (B, Do, Ho, Wo, 3), xyz in [-1, 1].
+    Returns (B, C, Do, Ho, Wo) in vol's dtype."""
+    b, c, d, h, w = vol.shape
+    step = sample_step(vol)
+    q = quantize(vol, step.view(b, 1, 1, 1, 1)).float().reshape(b, c, -1)
+    g = grid.float().reshape(b, 1, -1, 3)
+    tx, ty, tz = _taps(g[..., 0], w), _taps(g[..., 1], h), _taps(g[..., 2], d)
+    scale = step * INV127
+    out = torch.zeros((b, c, g.shape[2]), dtype=torch.float32,
+                      device=vol.device)
+    for zi, tzw, zok in tz:
+        acc = torch.zeros_like(out)
+        for yi, tyw, yok in ty:
+            for xi, txw, xok in tx:
+                qw = torch.round(tyw * txw * 127.0)
+                ok = zok & yok & xok
+                idx = torch.where(ok, (zi * h + yi) * w + xi, 0).long()
+                vals = torch.gather(q, 2, idx.expand(b, c, -1))
+                acc = acc + torch.where(ok, qw, 0.0) * vals
+        s = acc * scale.view(b, 1, 1)
+        out = out + torch.where(zok, s * tzw, 0.0)
+    return out.reshape(b, c, *grid.shape[1:4]).to(vol.dtype)
+
+
+def grid_sample_3d_quant_cuda(vol: torch.Tensor,
+                              grid: torch.Tensor) -> torch.Tensor:
+    """Launch the W8A8 CUDA kernel on ``vol`` / ``grid`` (one card)."""
+    _check_cuda_args(vol, grid)
+    b, c, d, h, w = vol.shape
+    do, ho, wo = grid.shape[1:4]
+    p = do * ho * wo
+    out = torch.empty((b, c, do, ho, wo), dtype=vol.dtype, device=vol.device)
+    if out.numel() == 0:
+        return out
+    step = sample_step(vol)
+    q = torch.empty(vol.shape, dtype=torch.int8, device=vol.device)
+    with torch.cuda.device(vol.device):
+        stream = torch.cuda.current_stream(vol.device).cuda_stream
+        WARP3D_Q.launch(
+            vol.data_ptr(), grid.data_ptr(), out.data_ptr(), q.data_ptr(),
+            step.data_ptr(), _DTYPE_CODE[vol.dtype], _DTYPE_CODE[grid.dtype],
+            b, c, d, h, w, p, stream)
+    return out
+
+
+def grid_sample_3d_quant(vol: torch.Tensor,
+                         grid: torch.Tensor) -> torch.Tensor:
+    """W8A8 trilinear grid sample (the fast bundle's warp), zero padding,
+    align_corners=False.  CPU tensors take the plain version; CUDA tensors
+    the kernel."""
+    if vol.device.type == "cpu" and grid.device.type == "cpu":
+        return grid_sample_3d_quant_plain(vol, grid)
+    return grid_sample_3d_quant_cuda(vol, grid)

@@ -1,8 +1,9 @@
 """Trilinear sampling: the warp and the constant-shift resample.
 
 Port of ``canonswap_tpu/ops/grid_sample.py``.  :func:`grid_sample_3d` is the
-warp: the plain version for CPU tensors and the hand-written CUDA kernel for
-CUDA tensors (``ops/cuda/warp.py``).  :func:`axis_resample_matrix` gives the
+warp and :func:`grid_sample_3d_quant` its W8A8 form (the fast bundle's): the
+plain versions for CPU tensors and the hand-written CUDA kernels for CUDA
+tensors (``ops/cuda/warp.py``).  :func:`axis_resample_matrix` gives the
 same function at a constant shift, one axis at a time, as a banded matrix:
 dense motion's sparse motions are such shifts.
 """
@@ -11,9 +12,9 @@ from __future__ import annotations
 
 import torch
 
-from canonswap_torch.ops.cuda.warp import grid_sample_3d
+from canonswap_torch.ops.cuda.warp import grid_sample_3d, grid_sample_3d_quant
 
-__all__ = ["axis_resample_matrix", "grid_sample_3d"]
+__all__ = ["axis_resample_matrix", "grid_sample_3d", "grid_sample_3d_quant"]
 
 
 def axis_resample_matrix(size: int, shift: torch.Tensor) -> torch.Tensor:

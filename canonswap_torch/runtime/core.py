@@ -45,7 +45,9 @@ class CanonSwapCore(nn.Module):
         self.warping_module = WarpingNetwork(cfg.warping)
         self.spade_generator = SPADEDecoder(cfg.spade)
         self.transfer = SwapModule(cfg.swap, c, d)
-        self.refine = RefineModule(c, d)
+        # the refine chain runs on the swap chain's volume and takes its
+        # int8 flag, as the JAX core does
+        self.refine = RefineModule(c, d, cfg.swap.int8_conv)
         if seed is not None:
             init_random_(self, seed)
         self.eval()

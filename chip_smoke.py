@@ -3,12 +3,23 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each:
-  1. device: card name and power limit, torch/CUDA versions, kernel build time;
-  2. kernel vs plain: the CUDA warp against its plain PyTorch version, f32
-     and bf16, and both timed at the main path's shape (B=8 CANONICAL);
+  1. device: card name and power limit, torch/CUDA versions; the three
+     kernels built at once (one nvcc per source) and their build times;
+  2. kernel vs plain: each CUDA kernel against its plain PyTorch version at
+     the main paths' shapes, f32 and bf16, and timed at B=8 CANONICAL: the
+     exact warp (against its plain version), the W8A8 warp (against its plain
+     version and the exact kernel) and the W8A8 conv (against cuDNN's bf16
+     conv of the same shape, and its plain f64 version);
   3. main path: CanonSwapCore(CANONICAL) in bf16 with seeded random weights,
      three frame batches through swap_with_motion, the warp's launches counted;
-  4. card vs CPU: the port at TINY in f32 on the card and on the CPU.
+  4. main path fast: the same with fast_bundle(CANONICAL) (half-resolution
+     dense motion, W8A8 convs, the W8A8 warp), every kernel's launches
+     counted per batch;
+  5. card vs CPU: the port at TINY in f32 on the card and on the CPU, for
+     the exact path and for fast_bundle(TINY); the fast path also on the
+     card with the plain versions in place of the W8A8 kernels, and on the
+     CPU in f64, to tell the kernels' error from drift upstream of the
+     quantizers.
 Any failure exits nonzero.  The last line is the run's one-line verdict.
 """
 
@@ -28,6 +39,33 @@ F32_TOL = 1e-5
 # f32 bit that differs can flip that one rounding, which is one bf16 ulp:
 # at most 2**-7 of the value, so 2**-7 of the largest output magnitude
 BF16_TOL = 2.0**-7
+# W8A8 warp: kernel and plain version quantize, sum integers and round in
+# f32 at the same places: bit-identical
+WARP_Q_TOL = 0.0
+# W8A8 conv: the same integers and steps; the plain version takes the fused
+# dequant multiply-add in f64 and rounds twice, which can differ from the
+# kernel's f32 fma by one f32 ulp where the f64 sum lands on an f32 tie
+# (about 2**-29 of the outputs): 1e-6 of the largest output
+QCONV_TOL = 1e-6
+# int8 tensor-core peak of the H100 SXM (dense, 700 W): NVIDIA's data sheet
+INT8_PEAK_TOPS = 1979.0
+
+# The W8A8 conv at the fast main path's B=8 CANONICAL shapes: (label, x
+# shape, Cout, kernel, bias, sites per batch).  86 launches per batch: 36 in
+# the 3D chains (appearance 6, swap 6, refine 6 blocks, 2 convs each), 14
+# adaptive convs (7 blocks x 2, on the 2B-stacked input), 6 in refine's 2D
+# blocks, 18 + 6 in the SPADE middles (conv_0/conv_1 and two gamma|beta per
+# block), 6 in up_0 (conv_0, conv_1, conv_s and three gamma|beta).
+QCONV_SITES = [
+    ("adaptive", (16, 512, 64, 64), 512, (3, 3), False, 14),
+    ("refine_2d_spade_middle", (8, 512, 64, 64), 512, (3, 3), True, 18),
+    ("spade_gamma_beta_64", (8, 128, 64, 64), 1024, (3, 3), True, 12),
+    ("spade_gamma_beta_128", (8, 128, 128, 128), 512, (3, 3), True, 3),
+    ("up_0_conv_0", (8, 512, 128, 128), 256, (3, 3), True, 1),
+    ("up_0_conv_1", (8, 256, 128, 128), 256, (3, 3), True, 1),
+    ("up_0_conv_s", (8, 512, 128, 128), 256, (1, 1), False, 1),
+    ("chain_3d", (8, 32, 16, 64, 64), 32, (3, 3, 3), True, 36),
+]
 
 
 def emit(phase: str, **fields) -> None:
@@ -69,8 +107,25 @@ def smooth_grid(b, d, h, w, scale, gen, device, dtype):
     return (ident + disp).to(device=device, dtype=dtype).contiguous()
 
 
+def kernels():
+    from canonswap_torch.ops.cuda.qconv import QCONV
+    from canonswap_torch.ops.cuda.warp import WARP3D, WARP3D_Q
+
+    return WARP3D, WARP3D_Q, QCONV
+
+
+def launch_counts() -> tuple[int, int, int]:
+    """(exact warp, W8A8 warp, W8A8 conv) launches so far."""
+    return tuple(k.launches for k in kernels())
+
+
+def reset_launch_counts() -> None:
+    for k in kernels():
+        k.launches = 0
+
+
 def phase_device() -> None:
-    from canonswap_torch.ops.cuda.warp import WARP3D
+    from canonswap_torch.ops.cuda.build import build_all
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -79,13 +134,15 @@ def phase_device() -> None:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    WARP3D.load()
+    build_all(kernels())
     load_s = time.perf_counter() - t0
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
-         warp3d_build_s=WARP3D.build_seconds, warp3d_load_s=load_s)
-    print(WARP3D.build_log.strip(), flush=True)
+         build_s={k.source.name: k.build_seconds for k in kernels()},
+         build_and_load_s=load_s)
+    for k in kernels():
+        print(k.build_log.strip(), flush=True)
 
 
 def phase_kernel() -> dict:
@@ -149,6 +206,166 @@ def phase_kernel() -> dict:
     return timings
 
 
+def phase_warp_q_kernel() -> dict:
+    """The W8A8 warp against its plain version, f32 and bf16, and timed at
+    B=8 CANONICAL beside its plain version and the exact kernel."""
+    from canonswap_torch.ops.cuda.warp import (
+        grid_sample_3d_cuda, grid_sample_3d_quant_cuda,
+        grid_sample_3d_quant_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    cases, worst = [], 0.0
+    shapes = [
+        ("canonical_r1.0", (2, 32, 16, 64, 64), (2, 16, 64, 64, 3), 1.0),
+        ("canonical_r1.4", (2, 32, 16, 64, 64), (2, 16, 64, 64, 3), 1.4),
+        ("ragged", (1, 16, 4, 8, 24), (1, 6, 8, 24, 3), 1.1),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, vshape, gshape, rng in shapes:
+            vol = torch.randn(vshape, generator=gen).to(dev, dtype)
+            grid = ((torch.rand(gshape, generator=gen) * 2 - 1) * rng).to(
+                dev, dtype)
+            got = grid_sample_3d_quant_cuda(vol, grid)
+            want = grid_sample_3d_quant_plain(vol, grid)
+            torch.cuda.synchronize()
+            rel, abs_err = max_rel_err(got, want)
+            cases.append({"case": label, "dtype": str(dtype), "rel": rel,
+                          "max_abs_err": abs_err, "tol": WARP_Q_TOL})
+            worst = max(worst, abs_err)
+            if not abs_err <= WARP_Q_TOL:
+                emit("kernel_vs_plain", kernel="warp3d_q", cases=cases,
+                     ok=False)
+                raise AssertionError(
+                    f"warp3d_q vs plain {label} {dtype}: max abs {abs_err}")
+    timings = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        vol = torch.randn((8, 32, 16, 64, 64), generator=gen).to(dev, dtype)
+        for field, grid in (
+            ("smooth", smooth_grid(8, 16, 64, 64, 0.05, gen, dev, dtype)),
+            ("random", ((torch.rand((8, 16, 64, 64, 3), generator=gen) * 2
+                         - 1)).to(dev, dtype)),
+        ):
+            got = grid_sample_3d_quant_cuda(vol, grid)
+            want = grid_sample_3d_quant_plain(vol, grid)
+            _, abs_err = max_rel_err(got, want)
+            if not abs_err <= WARP_Q_TOL:
+                raise AssertionError(
+                    f"warp3d_q vs plain B=8 {field} {dtype}: {abs_err}")
+            p1 = time_ms(lambda: grid_sample_3d_quant_plain(vol, grid))
+            k1 = time_ms(lambda: grid_sample_3d_quant_cuda(vol, grid))
+            k2 = time_ms(lambda: grid_sample_3d_quant_cuda(vol, grid))
+            p2 = time_ms(lambda: grid_sample_3d_quant_plain(vol, grid))
+            exact = time_ms(lambda: grid_sample_3d_cuda(vol, grid))
+            timings[f"{field}_{str(dtype).split('.')[-1]}"] = {
+                "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+                "exact_kernel_ms": exact, "max_abs_err": abs_err}
+    emit("kernel_vs_plain", kernel="warp3d_q", cases=cases,
+         timings_b8=timings, worst_max_abs_err=worst, ok=True)
+    return {"timings": timings, "worst": worst}
+
+
+def phase_qconv_kernel() -> dict:
+    """The W8A8 conv against its plain version at every shape of the fast
+    path (B=2, the adaptive conv's stacked 2B = 4) and a ragged case, f32
+    and bf16; then at the B=8 shapes the main path gives it (bf16), checked
+    the same way and timed beside cuDNN's bf16 conv of the same shape, the
+    plain version's weight quantization and the plain f64 version."""
+    import torch.nn.functional as F
+
+    from canonswap_torch.ops.cuda.qconv import conv_w8a8_cuda
+    from canonswap_torch.ops.qconv import conv_w8a8_plain
+    from canonswap_torch.ops.quant import quantize_weight
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+
+    def operands(shape, cout, k, bias, dtype):
+        x = torch.randn(shape, generator=gen).to(dev, dtype)
+        fan_in = shape[1] * int(np.prod(k))
+        w = (torch.randn((cout, shape[1], *k), generator=gen)
+             / fan_in**0.5).to(dev, dtype)
+        b = (torch.randn(cout, generator=gen) * 0.05).to(dev, dtype) \
+            if bias else None
+        return x, w, b
+
+    checks = [(label, (shape[0] // 4, *shape[1:]), cout, k, bias)
+              for label, shape, cout, k, bias, _ in QCONV_SITES]
+    checks.append(("ragged_k7_cin6", (2, 6, 37, 29), 16, (7, 7), False))
+    cases, worst = [], 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, shape, cout, k, bias in checks:
+            x, w, b = operands(shape, cout, k, bias, dtype)
+            got = conv_w8a8_cuda(x, w, b)
+            want = conv_w8a8_plain(x, w, b)
+            torch.cuda.synchronize()
+            rel, abs_err = max_rel_err(got, want)
+            cases.append({"case": label, "shape": list(shape),
+                          "dtype": str(dtype), "rel": rel,
+                          "max_abs_err": abs_err, "tol": QCONV_TOL})
+            worst = max(worst, abs_err)
+            if not rel <= QCONV_TOL:
+                emit("kernel_vs_plain", kernel="qconv", cases=cases, ok=False)
+                raise AssertionError(
+                    f"qconv vs plain {label} {dtype}: rel {rel}")
+    # at the main path's B=8 shapes: checked, then timed.  The kernel's call
+    # quantizes the weight too; the plain version's weight quantization in
+    # torch ops is timed beside it, for what running it as torch ops costs.
+    timings, conv_ms, cudnn_ms, wq_ms = {}, 0.0, 0.0, 0.0
+    for label, shape, cout, k, bias, sites in QCONV_SITES:
+        x, w, b = operands(shape, cout, k, bias, torch.bfloat16)
+        got = conv_w8a8_cuda(x, w, b)
+        want = conv_w8a8_plain(x, w, b)
+        rel, abs_err = max_rel_err(got, want)
+        worst = max(worst, abs_err)
+        if not rel <= QCONV_TOL:
+            raise AssertionError(f"qconv vs plain B=8 {label}: rel {rel}")
+        del got, want
+        conv = F.conv2d if x.dim() == 4 else F.conv3d
+        pad = tuple(n // 2 for n in k)
+        c1 = time_ms(lambda: conv(x, w, b, padding=pad))
+        k1 = time_ms(lambda: conv_w8a8_cuda(x, w, b))
+        k2 = time_ms(lambda: conv_w8a8_cuda(x, w, b))
+        c2 = time_ms(lambda: conv(x, w, b, padding=pad))
+        wq = time_ms(lambda: quantize_weight(w))
+        plain = time_ms(lambda: conv_w8a8_plain(x, w, b), iters=2, reps=3)
+        ops = 2.0 * x.numel() // shape[1] * cout * shape[1] * np.prod(k)
+        kms = float(np.median([k1, k2]))
+        timings[label] = {
+            "kernel_ms": [k1, k2], "cudnn_bf16_ms": [c1, c2],
+            "plain_weight_quantize_ms": wq, "plain_f64_ms": plain,
+            "rel": rel, "max_abs_err": abs_err, "tera_ops": ops / 1e12,
+            "kernel_tops": ops / kms / 1e9,
+            "int8_peak_share": ops / kms / 1e9 / INT8_PEAK_TOPS,
+            "sites_per_batch": sites}
+        conv_ms += sites * kms
+        cudnn_ms += sites * float(np.median([c1, c2]))
+        wq_ms += sites * wq
+    emit("kernel_vs_plain", kernel="qconv", cases=cases, timings_b8=timings,
+         worst_max_abs_err=worst, sites_kernel_ms_per_batch=conv_ms,
+         sites_cudnn_bf16_ms_per_batch=cudnn_ms,
+         sites_plain_weight_quantize_ms_per_batch=wq_ms, ok=True)
+    return {"timings": timings, "worst": worst}
+
+
+def qconv_sites(cfg) -> int:
+    """W8A8 conv launches per batch of the fast path, from the JAX
+    package's gates (int8_worthwhile: Cin >= 128 and H <= 128)."""
+    a, sw, sp = cfg.appearance, cfg.swap, cfg.spade
+    hw = cfg.input_size // 2**a.num_down_blocks  # the volume's plane
+
+    def big(cin, h):
+        return int(cin >= 128 and h <= 128)
+
+    cd = a.reshape_channel * a.reshape_depth
+    n = 2 * a.num_resblocks + 2 * sw.n_resblocks_3d + 2 * 6  # 3D chains
+    n += 2 * sw.n_blocks * big(cd, hw) + 6 * big(cd, hw)  # adaptive, refine
+    ic = min(sp.max_features, sp.block_expansion * 2**sp.num_down_blocks)
+    n += 6 * (2 * big(2 * ic, hw) + 2 * big(128, hw))  # G_middle_0..5
+    n += 2 * big(2 * ic, 2 * hw) + big(ic, 2 * hw) + 3 * big(128, 2 * hw)
+    return n
+
+
 def synthetic_motion(b, k, gen, device, dtype):
     """In-range motion (bench.py's): posed keypoints N(0, 0.25^2), canonical
     ones 0.1 away, unit scale, so the warp gathers inside the volume."""
@@ -210,7 +427,7 @@ def phase_main_path() -> dict:
     C.swap_with_motion(core, batches[0], sid, as_uint8=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    WARP3D.launches = 0
+    reset_launch_counts()
     ms, per_batch = [], []
     for frames in batches[1:]:
         before = WARP3D.launches
@@ -223,9 +440,11 @@ def phase_main_path() -> dict:
         img = out["out"]
         if img.shape != (b, 2 * s, 2 * s, 3) or img.dtype != torch.uint8:
             raise AssertionError(f"main path output {img.shape} {img.dtype}")
-    launches = WARP3D.launches
-    if per_batch != [2, 2, 2]:
-        raise AssertionError(f"warp launches per batch {per_batch} != 2")
+    launches = launch_counts()
+    if per_batch != [2, 2, 2] or launches[1:] != (0, 0):
+        raise AssertionError(
+            f"warp launches per batch {per_batch} != 2, or the exact path "
+            f"launched the W8A8 kernels: {launches}")
     peak = torch.cuda.max_memory_allocated()
     img_f = img.float()
     # the same path at in-range motion: the warp gathers inside the volume
@@ -245,6 +464,68 @@ def phase_main_path() -> dict:
          x_t_absmax=float(motion["x_t"].abs().max()),
          in_range_out_mean=float(syn.float().mean()),
          in_range_out_std=float(syn.float().std()))
+    return {"launches": launches[0], "batches": batches, "sid": sid,
+            "img": img, "median_ms": med, "stage_ms": stages}
+
+
+def phase_main_path_fast(exact: dict) -> dict:
+    """fast_bundle(CANONICAL) in bf16, B=8, from the exact run's seed and
+    frames: launches per batch, timing, and |fast - exact| for information
+    (the weights are random)."""
+    from canonswap_torch.configs import CANONICAL, fast_bundle
+    from canonswap_torch.runtime import core as C
+
+    dev, dtype, b = torch.device("cuda"), torch.bfloat16, 8
+    cfg = fast_bundle(CANONICAL)
+    want = (0, 2, qconv_sites(cfg))
+    t0 = time.perf_counter()
+    core = C.CanonSwapCore(cfg, seed=0).to(dev, dtype)
+    init_s = time.perf_counter() - t0
+    s = CANONICAL.input_size
+    batches, sid = exact["batches"], exact["sid"]
+    C.swap_with_motion(core, batches[0], sid, as_uint8=True)  # set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ms, per_batch = [], []
+    for frames in batches[1:]:
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, _ = C.swap_with_motion(core, frames, sid, as_uint8=True)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        per_batch.append(tuple(
+            n - m for n, m in zip(launch_counts(), before)))
+        img = out["out"]
+        if img.shape != (b, 2 * s, 2 * s, 3) or img.dtype != torch.uint8:
+            raise AssertionError(f"fast path output {img.shape} {img.dtype}")
+    launches = launch_counts()
+    if per_batch != [want] * 3:
+        raise AssertionError(
+            f"fast path launches (exact warp, W8A8 warp, qconv) per batch "
+            f"{per_batch} != {want}")
+    peak = torch.cuda.max_memory_allocated()
+    fast_vs_exact = float(
+        (img.float() - exact["img"].float()).abs().mean())
+    gen = torch.Generator().manual_seed(5)
+    motion_syn = synthetic_motion(b, CANONICAL.motion.num_kp, gen, dev, dtype)
+    with torch.inference_mode():
+        syn = C.swap_step(core, batches[1], sid, motion_syn)["out"]
+    if not bool(torch.isfinite(syn.float()).all()):
+        raise AssertionError("fast swap_step at in-range motion: non-finite")
+    stages = stage_times(core, batches[1], sid)
+    med = float(np.median(ms))
+    emit("main_path_fast", config="fast_bundle(CANONICAL)", dtype="bf16",
+         batch=b, init_s=init_s, ms_per_batch=ms, median_ms=med,
+         frames_per_s=b / (med / 1e3), exact_median_ms=exact["median_ms"],
+         launches_per_batch=[list(p) for p in per_batch],
+         launches_order=["warp3d", "warp3d_q", "qconv"],
+         max_memory_allocated=peak, stage_ms=stages,
+         stage_sum_ms=sum(stages.values()), exact_stage_ms=exact["stage_ms"],
+         mean_abs_uint8_fast_vs_exact=fast_vs_exact,
+         in_range_out_mean=float(syn.float().mean()),
+         in_range_out_std=float(syn.float().std()))
     return {"launches": launches}
 
 
@@ -258,6 +539,7 @@ def phase_card_vs_cpu() -> None:
     from canonswap_torch.ops.cuda.warp import WARP3D
     from canonswap_torch.runtime import core as C
 
+    reset_launch_counts()
     bound = 2e-4
     dev = torch.device("cuda")
     cpu_core = C.CanonSwapCore(TINY, seed=5)
@@ -288,6 +570,95 @@ def phase_card_vs_cpu() -> None:
             f"card vs CPU: max abs {abs_err}, {abs_syn} > {bound}")
 
 
+def phase_card_vs_cpu_fast() -> None:
+    """fast_bundle(TINY) in f32, TF32 off, the same weights and inputs, two
+    image sets (swap_with_motion and swap_step at in-range motion), images
+    in [0, 1].  At TINY the 3D chains, the SPADE convs and gamma|beta run
+    int8 (Cin >= 128); swap's and refine's 2D convs do not (Cin = 64).
+    Three comparisons:
+
+    1. kernels vs plain on the card: the card's core once with the W8A8
+       kernels and once with their plain versions on the same CUDA tensors.
+       Every other op is the same op on the same card, and each kernel
+       equals its plain version at every checked shape, so a difference is
+       a kernel's: bound max abs 2e-4, the port's tolerance.
+    2. drift on the CPU: the plain path in f32 against the same path in f64.
+       An ulp-level change upstream of a quantizer moves an activation by
+       one quantum where it falls near a rounding tie (about 1e-3 of an
+       output), and the random weights amplify that through the 45 W8A8
+       convs.  This measures the amplification, with no kernel involved.
+    3. card vs CPU: the kernels' run against the CPU's f32 run.  The card's
+       f32 convs sum in another order than the CPU's, an ulp-level change of
+       the same kind as 2.  Bound: the mean |card - CPU| of each set at most
+       3x that set's mean f32-vs-f64 drift (two draws of one amplification,
+       so their ratio scatters: 1.1 and 1.8 in the first card runs) and at
+       most 0.05."""
+    from unittest import mock
+
+    import canonswap_torch.ops.cuda.warp as W
+    import canonswap_torch.ops.qconv as Q
+    from canonswap_torch.configs import TINY, fast_bundle
+    from canonswap_torch.runtime import core as C
+
+    plain_bound, drift_factor, cap = 2e-4, 3.0, 0.05
+    cfg = fast_bundle(TINY)
+    dev = torch.device("cuda")
+    cpu_core = C.CanonSwapCore(cfg, seed=5)
+    gpu_core = C.CanonSwapCore(cfg, seed=5).to(dev)
+    f64_core = C.CanonSwapCore(cfg, seed=5).double()
+    gen = torch.Generator().manual_seed(2)
+    frames = torch.rand((2, TINY.input_size, TINY.input_size, 3),
+                        generator=gen)
+    sid = torch.nn.functional.normalize(
+        torch.randn((1, TINY.swap.latent_dim), generator=gen), dim=-1)
+    motion = synthetic_motion(2, TINY.motion.num_kp, gen, "cpu", torch.float32)
+
+    def run(core, device, dtype):
+        """(swap_with_motion, swap_step) images of ``core``, on the CPU."""
+        to = lambda v: v.to(device, dtype)  # noqa: E731
+        with torch.inference_mode():
+            a = C.swap_with_motion(core, to(frames), to(sid))[0]["out"]
+            b = C.swap_step(core, to(frames), to(sid),
+                            {k: to(v) for k, v in motion.items()})["out"]
+        return a.cpu().double(), b.cpu().double()
+
+    reset_launch_counts()
+    card = run(gpu_core, dev, torch.float32)
+    launches = launch_counts()
+    if launches != (0, 4, 2 * qconv_sites(cfg)):
+        raise AssertionError(
+            f"fast TINY on the card launched (exact warp, W8A8 warp, qconv) "
+            f"{launches}, not (0, 4, {2 * qconv_sites(cfg)})")
+    with mock.patch.object(Q, "conv_w8a8_cuda", Q.conv_w8a8_plain), \
+            mock.patch.object(W, "grid_sample_3d_quant_cuda",
+                              W.grid_sample_3d_quant_plain):
+        card_plain = run(gpu_core, dev, torch.float32)
+    if launch_counts() != launches:
+        raise AssertionError("the plain run on the card launched a kernel")
+    cpu = run(cpu_core, "cpu", torch.float32)
+    cpu64 = run(f64_core, "cpu", torch.float64)
+    names = ("swap_with_motion", "in_range_swap_step")
+    stats = {}
+    for name, k, p, c, c64 in zip(names, card, card_plain, cpu, cpu64):
+        stats[name] = {
+            "kernels_vs_plain_on_card_max_abs": float((k - p).abs().max()),
+            "cpu_f32_vs_f64_mean_abs": float((c - c64).abs().mean()),
+            "card_vs_cpu_mean_abs": float((k - c).abs().mean()),
+            "card_vs_cpu_max_abs": float((k - c).abs().max())}
+    emit("card_vs_cpu_fast", config="fast_bundle(TINY)", dtype="f32",
+         launches=list(launches), bound_kernels_vs_plain_max_abs=plain_bound,
+         bound_card_vs_cpu_mean_abs=f"min({cap}, {drift_factor} x drift)",
+         **stats)
+    for name, st in stats.items():
+        if not st["kernels_vs_plain_on_card_max_abs"] <= plain_bound:
+            raise AssertionError(f"fast TINY {name}: kernels vs plain on the "
+                                 f"card {st} over {plain_bound}")
+        bound = min(cap, drift_factor * st["cpu_f32_vs_f64_mean_abs"])
+        if not st["card_vs_cpu_mean_abs"] <= bound:
+            raise AssertionError(
+                f"fast TINY {name}: card vs CPU {st} over {bound}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -297,9 +668,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_device()
     timings = phase_kernel()
+    warp_q = phase_warp_q_kernel()
+    qconv = phase_qconv_kernel()
     main_path = phase_main_path()
+    fast = phase_main_path_fast(main_path)
+    del main_path["batches"], main_path["img"]
     phase_card_vs_cpu()
+    phase_card_vs_cpu_fast()
     bf16 = timings["smooth_bfloat16"]
+    bf16_q = warp_q["timings"]["smooth_bfloat16"]
+    adaptive = qconv["timings"]["adaptive"]
     print(json.dumps({"kernels": [{
         "name": "warp3d", "route": "cuda",
         "source": "canonswap_torch/csrc/warp3d.cu",
@@ -308,6 +686,24 @@ def main() -> int:
         "max_abs_err": bf16["max_abs_err"],
         "ms": float(np.median(bf16["kernel_ms"])),
         "plain_ms": float(np.median(bf16["plain_ms"])),
+    }, {
+        "name": "warp3d_q", "route": "cuda",
+        "source": "canonswap_torch/csrc/warp3d_q.cu",
+        "replaces": "canonswap_tpu/ops/pallas/warp.py:71",
+        "launches": fast["launches"][1],
+        "max_abs_err": warp_q["worst"],
+        "ms": float(np.median(bf16_q["kernel_ms"])),
+        "plain_ms": float(np.median(bf16_q["plain_ms"])),
+        "exact_kernel_ms": bf16_q["exact_kernel_ms"],
+    }, {
+        "name": "qconv", "route": "cuda",
+        "source": "canonswap_torch/csrc/qconv.cu",
+        "replaces": "canonswap_tpu/ops/pallas/qconv.py:107",
+        "launches": fast["launches"][2],
+        "max_abs_err": qconv["worst"],
+        "ms": float(np.median(adaptive["kernel_ms"])),
+        "plain_ms": adaptive["plain_f64_ms"],
+        "cudnn_bf16_ms": float(np.median(adaptive["cudnn_bf16_ms"])),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
