@@ -27,16 +27,21 @@ from canonswap_torch.models.swap import SwapModule
 from canonswap_torch.models.warping import WarpingNetwork
 from canonswap_torch.nn.init import init_random_
 from canonswap_torch.ops.pose import transform_keypoint
+from canonswap_torch.runtime.device import resolve_device
 
 
 class CanonSwapCore(nn.Module):
     """The six generator networks, in eval mode, without gradients."""
 
     def __init__(self, cfg: CanonSwapModelConfig = CANONICAL,
-                 seed: int | None = 0):
+                 seed: int | None = 0, device: str | torch.device = "cuda"):
         """``seed``: random weights from this seed (no checkpoint ships);
-        None leaves PyTorch's default init for a state_dict to replace."""
+        None leaves PyTorch's default init for a state_dict to replace.
+        The weights are made on the CPU, so a seed gives the same weights on
+        every device, then moved to ``device`` (the card unless the caller
+        asks for the CPU; raises if no card is there)."""
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         c, d = cfg.appearance.reshape_channel, cfg.appearance.reshape_depth
         self.appearance_feature_extractor = AppearanceFeatureExtractor(
@@ -52,6 +57,7 @@ class CanonSwapCore(nn.Module):
             init_random_(self, seed)
         self.eval()
         self.requires_grad_(False)
+        self.to(device)
 
 
 def _nchw(frames: torch.Tensor) -> torch.Tensor:

@@ -74,7 +74,12 @@ class _Reader:
     def dense(self, path: str, key: str) -> None:
         leaf = self._node(self.params, path)
         self._put(f"{key}.weight", np.asarray(leaf["kernel"]).T)
-        self._put(f"{key}.bias", leaf["bias"])
+        if "bias" in leaf:
+            self._put(f"{key}.bias", leaf["bias"])
+
+    def array(self, path: str, key: str) -> None:
+        """A parameter stored as it is (embeddings, tables, gammas)."""
+        self._put(key, self._node(self.params, path))
 
     def affine(self, path: str, key: str) -> None:
         """LayerNorm / GroupNorm scale, bias."""

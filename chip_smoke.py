@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each:
-  1. device: card name and power limit, torch/CUDA versions; the three
+  1. device: card name and power limit, torch/CUDA versions; the four
      kernels built at once (one nvcc per source) and their build times;
   2. kernel vs plain: each CUDA kernel against its plain PyTorch version at
      the main paths' shapes, f32 and bf16, and timed at B=8 CANONICAL: the
@@ -19,8 +19,20 @@ Phases, one JSON line each:
      the exact path and for fast_bundle(TINY); the fast path also on the
      card with the plain versions in place of the W8A8 kernels, and on the
      CPU in f64, to tell the kernels' error from drift upstream of the
-     quantizers.
-Any failure exits nonzero.  The last line is the run's one-line verdict.
+     quantizers;
+  6. xpose path: XPoseRunner at full width (UniPoseConfig(), canvas
+     (800, 1344), f32) on one 720p frame, three timed images, the
+     deformable attention kernel's 12 launches per image counted;
+  7. msda kernel: that kernel against its plain version at small ragged
+     shapes, at the full-width shapes, and on the inputs the xpose path
+     gave it, timed there beside the plain version and its bound;
+  8. xpose card vs CPU: UniPose at TINY on both, equal top-k selections,
+     outputs within 2e-4.
+Before the last line, one line lists every kernel with its launches on the
+main paths, its error against its plain version, its time, the plain
+version's, its bound and a library call's time where one computes the same
+function.  Any failure exits nonzero.  The last line is the run's one-line
+verdict.
 """
 
 from __future__ import annotations
@@ -47,8 +59,12 @@ WARP_Q_TOL = 0.0
 # kernel's f32 fma by one f32 ulp where the f64 sum lands on an f32 tie
 # (about 2**-29 of the outputs): 1e-6 of the largest output
 QCONV_TOL = 1e-6
-# int8 tensor-core peak of the H100 SXM (dense, 700 W): NVIDIA's data sheet
+# H100 SXM peaks (dense, 700 W; NVIDIA's data sheet): int8 tensor cores,
+# float32 outside the tensor cores (the rate of the gather kernels' f32
+# arithmetic), and device memory
 INT8_PEAK_TOPS = 1979.0
+F32_PEAK_TFLOPS = 67.0
+HBM_TB_S = 3.35
 
 # The W8A8 conv at the fast main path's B=8 CANONICAL shapes: (label, x
 # shape, Cout, kernel, bias, sites per batch).  86 launches per batch: 36 in
@@ -70,6 +86,26 @@ QCONV_SITES = [
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def bound_ms(nbytes: float, ops: float, peak_tera_ops: float):
+    """The least time the card could take for a call: the bytes it must
+    move (each input read once, each output written once) over the memory
+    rate, or its operations over their type's peak rate, whichever is
+    larger.  Returns (ms, "bytes" or "operations")."""
+    t_bytes = nbytes / (HBM_TB_S * 1e12) * 1e3
+    t_ops = ops / (peak_tera_ops * 1e12) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def warp_bound(vol, grid, out):
+    """A trilinear warp's bound: 8 corner multiply-adds per output."""
+    return bound_ms(nbytes(vol, grid, out), 16.0 * out.numel(),
+                    F32_PEAK_TFLOPS)
 
 
 def max_rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -108,14 +144,16 @@ def smooth_grid(b, d, h, w, scale, gen, device, dtype):
 
 
 def kernels():
+    from canonswap_torch.ops.cuda.ms_deform_attn import MSDA
     from canonswap_torch.ops.cuda.qconv import QCONV
     from canonswap_torch.ops.cuda.warp import WARP3D, WARP3D_Q
 
-    return WARP3D, WARP3D_Q, QCONV
+    return WARP3D, WARP3D_Q, QCONV, MSDA
 
 
-def launch_counts() -> tuple[int, int, int]:
-    """(exact warp, W8A8 warp, W8A8 conv) launches so far."""
+def launch_counts() -> tuple[int, int, int, int]:
+    """(exact warp, W8A8 warp, W8A8 conv, deformable attention) launches
+    so far."""
     return tuple(k.launches for k in kernels())
 
 
@@ -197,9 +235,16 @@ def phase_kernel() -> dict:
             k1 = time_ms(lambda: grid_sample_3d_cuda(vol, grid))
             k2 = time_ms(lambda: grid_sample_3d_cuda(vol, grid))
             p2 = time_ms(lambda: grid_sample_3d_plain(vol, grid))
+            # the library call computing the same function on the same
+            # tensors, as a yardstick
+            lib = time_ms(lambda: torch.nn.functional.grid_sample(
+                vol, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=False))
+            bound, bound_by = warp_bound(vol, grid, got)
             timings[f"{field}_{str(dtype).split('.')[-1]}"] = {
-                "kernel_ms": [k1, k2], "plain_ms": [p1, p2], "rel": rel,
-                "max_abs_err": abs_err}
+                "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+                "library_ms": lib, "bound_ms": bound, "bound_by": bound_by,
+                "rel": rel, "max_abs_err": abs_err}
     emit("kernel_vs_plain", cases=cases, timings_b8=timings,
          worst_rel_f32=worst[torch.float32],
          worst_rel_bf16=worst[torch.bfloat16], ok=True)
@@ -257,9 +302,11 @@ def phase_warp_q_kernel() -> dict:
             k2 = time_ms(lambda: grid_sample_3d_quant_cuda(vol, grid))
             p2 = time_ms(lambda: grid_sample_3d_quant_plain(vol, grid))
             exact = time_ms(lambda: grid_sample_3d_cuda(vol, grid))
+            bound, bound_by = warp_bound(vol, grid, got)
             timings[f"{field}_{str(dtype).split('.')[-1]}"] = {
                 "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
-                "exact_kernel_ms": exact, "max_abs_err": abs_err}
+                "exact_kernel_ms": exact, "bound_ms": bound,
+                "bound_by": bound_by, "max_abs_err": abs_err}
     emit("kernel_vs_plain", kernel="warp3d_q", cases=cases,
          timings_b8=timings, worst_max_abs_err=worst, ok=True)
     return {"timings": timings, "worst": worst}
@@ -320,6 +367,7 @@ def phase_qconv_kernel() -> dict:
         worst = max(worst, abs_err)
         if not rel <= QCONV_TOL:
             raise AssertionError(f"qconv vs plain B=8 {label}: rel {rel}")
+        moved = nbytes(x, w, got) + (0 if b is None else nbytes(b))
         del got, want
         conv = F.conv2d if x.dim() == 4 else F.conv3d
         pad = tuple(n // 2 for n in k)
@@ -330,6 +378,7 @@ def phase_qconv_kernel() -> dict:
         wq = time_ms(lambda: quantize_weight(w))
         plain = time_ms(lambda: conv_w8a8_plain(x, w, b), iters=2, reps=3)
         ops = 2.0 * x.numel() // shape[1] * cout * shape[1] * np.prod(k)
+        bound, bound_by = bound_ms(moved, ops, INT8_PEAK_TOPS)
         kms = float(np.median([k1, k2]))
         timings[label] = {
             "kernel_ms": [k1, k2], "cudnn_bf16_ms": [c1, c2],
@@ -337,6 +386,7 @@ def phase_qconv_kernel() -> dict:
             "rel": rel, "max_abs_err": abs_err, "tera_ops": ops / 1e12,
             "kernel_tops": ops / kms / 1e9,
             "int8_peak_share": ops / kms / 1e9 / INT8_PEAK_TOPS,
+            "bound_ms": bound, "bound_by": bound_by,
             "sites_per_batch": sites}
         conv_ms += sites * kms
         cudnn_ms += sites * float(np.median([c1, c2]))
@@ -414,7 +464,7 @@ def phase_main_path() -> dict:
 
     dev, dtype, b = torch.device("cuda"), torch.bfloat16, 8
     t0 = time.perf_counter()
-    core = C.CanonSwapCore(CANONICAL, seed=0).to(dev, dtype)
+    core = C.CanonSwapCore(CANONICAL, seed=0).to(dtype)
     init_s = time.perf_counter() - t0
     s = CANONICAL.input_size
     gen = torch.Generator().manual_seed(1)
@@ -441,7 +491,7 @@ def phase_main_path() -> dict:
         if img.shape != (b, 2 * s, 2 * s, 3) or img.dtype != torch.uint8:
             raise AssertionError(f"main path output {img.shape} {img.dtype}")
     launches = launch_counts()
-    if per_batch != [2, 2, 2] or launches[1:] != (0, 0):
+    if per_batch != [2, 2, 2] or launches[1:] != (0, 0, 0):
         raise AssertionError(
             f"warp launches per batch {per_batch} != 2, or the exact path "
             f"launched the W8A8 kernels: {launches}")
@@ -477,9 +527,9 @@ def phase_main_path_fast(exact: dict) -> dict:
 
     dev, dtype, b = torch.device("cuda"), torch.bfloat16, 8
     cfg = fast_bundle(CANONICAL)
-    want = (0, 2, qconv_sites(cfg))
+    want = (0, 2, qconv_sites(cfg), 0)
     t0 = time.perf_counter()
-    core = C.CanonSwapCore(cfg, seed=0).to(dev, dtype)
+    core = C.CanonSwapCore(cfg, seed=0).to(dtype)
     init_s = time.perf_counter() - t0
     s = CANONICAL.input_size
     batches, sid = exact["batches"], exact["sid"]
@@ -503,8 +553,8 @@ def phase_main_path_fast(exact: dict) -> dict:
     launches = launch_counts()
     if per_batch != [want] * 3:
         raise AssertionError(
-            f"fast path launches (exact warp, W8A8 warp, qconv) per batch "
-            f"{per_batch} != {want}")
+            f"fast path launches (exact warp, W8A8 warp, qconv, msda) per "
+            f"batch {per_batch} != {want}")
     peak = torch.cuda.max_memory_allocated()
     fast_vs_exact = float(
         (img.float() - exact["img"].float()).abs().mean())
@@ -520,7 +570,7 @@ def phase_main_path_fast(exact: dict) -> dict:
          batch=b, init_s=init_s, ms_per_batch=ms, median_ms=med,
          frames_per_s=b / (med / 1e3), exact_median_ms=exact["median_ms"],
          launches_per_batch=[list(p) for p in per_batch],
-         launches_order=["warp3d", "warp3d_q", "qconv"],
+         launches_order=["warp3d", "warp3d_q", "qconv", "ms_deform_attn"],
          max_memory_allocated=peak, stage_ms=stages,
          stage_sum_ms=sum(stages.values()), exact_stage_ms=exact["stage_ms"],
          mean_abs_uint8_fast_vs_exact=fast_vs_exact,
@@ -542,8 +592,8 @@ def phase_card_vs_cpu() -> None:
     reset_launch_counts()
     bound = 2e-4
     dev = torch.device("cuda")
-    cpu_core = C.CanonSwapCore(TINY, seed=5)
-    gpu_core = C.CanonSwapCore(TINY, seed=5).to(dev)
+    cpu_core = C.CanonSwapCore(TINY, seed=5, device="cpu")
+    gpu_core = C.CanonSwapCore(TINY, seed=5)
     gen = torch.Generator().manual_seed(2)
     frames = torch.rand((2, TINY.input_size, TINY.input_size, 3),
                         generator=gen)
@@ -603,9 +653,9 @@ def phase_card_vs_cpu_fast() -> None:
     plain_bound, drift_factor, cap = 2e-4, 3.0, 0.05
     cfg = fast_bundle(TINY)
     dev = torch.device("cuda")
-    cpu_core = C.CanonSwapCore(cfg, seed=5)
-    gpu_core = C.CanonSwapCore(cfg, seed=5).to(dev)
-    f64_core = C.CanonSwapCore(cfg, seed=5).double()
+    cpu_core = C.CanonSwapCore(cfg, seed=5, device="cpu")
+    gpu_core = C.CanonSwapCore(cfg, seed=5)
+    f64_core = C.CanonSwapCore(cfg, seed=5, device="cpu").double()
     gen = torch.Generator().manual_seed(2)
     frames = torch.rand((2, TINY.input_size, TINY.input_size, 3),
                         generator=gen)
@@ -625,10 +675,10 @@ def phase_card_vs_cpu_fast() -> None:
     reset_launch_counts()
     card = run(gpu_core, dev, torch.float32)
     launches = launch_counts()
-    if launches != (0, 4, 2 * qconv_sites(cfg)):
+    if launches != (0, 4, 2 * qconv_sites(cfg), 0):
         raise AssertionError(
-            f"fast TINY on the card launched (exact warp, W8A8 warp, qconv) "
-            f"{launches}, not (0, 4, {2 * qconv_sites(cfg)})")
+            f"fast TINY on the card launched (exact warp, W8A8 warp, qconv, "
+            f"msda) {launches}, not (0, 4, {2 * qconv_sites(cfg)}, 0)")
     with mock.patch.object(Q, "conv_w8a8_cuda", Q.conv_w8a8_plain), \
             mock.patch.object(W, "grid_sample_3d_quant_cuda",
                               W.grid_sample_3d_quant_plain):
@@ -659,6 +709,313 @@ def phase_card_vs_cpu_fast() -> None:
                 f"fast TINY {name}: card vs CPU {st} over {bound}")
 
 
+# XPose at full width: the reference's canvas (animal_landmark_runner.py:
+# short side 800, long side <= 1333, as canonswap_tpu's runner records it),
+# one 720p frame letterboxed into it, 9 keypoints
+XPOSE_CANVAS = (800, 1344)
+XPOSE_IMAGE = (720, 1280)
+XPOSE_KEYPOINTS = 9
+# (label, Lq) of the deformable attention's calls per forward at full
+# width: 6 encoder layers, 2 box decoder layers (900 queries), 4 keypoint
+# decoder layers (50 groups of 1 + 68 queries)
+MSDA_CALLS = (("encoder", 22323, 6), ("decoder_box", 900, 2),
+              ("decoder_kpt", 3450, 4))
+MSDA_PER_FORWARD = sum(n for _, _, n in MSDA_CALLS)
+
+
+def clip_like_embeddings(seed: int, n_kpt: int):
+    """Seeded stand-ins for the CLIP text embeddings (unit rows, 512 wide):
+    one instance prompt and n_kpt keypoint prompts."""
+    g = np.random.default_rng(seed)
+    ins = g.standard_normal((1, 512))
+    kpt = g.standard_normal((n_kpt, 512))
+    return [(a / np.linalg.norm(a, axis=1, keepdims=True)).astype(np.float32)
+            for a in (ins, kpt)]
+
+
+def module_times(model, fn) -> dict:
+    """Device ms per kind of UniPose module over one call of ``fn`` (CUDA
+    events from forward hooks).  "msda" is the deformable attention inside
+    the encoder and decoder layers, counted in those layers too."""
+    enc, dec = model.transformer.encoder, model.transformer.decoder
+    groups = {
+        "backbone": [model.backbone[0]], "input_proj": list(model.input_proj),
+        "fusion": list(enc.fusion_layers), "text": list(enc.text_layers),
+        "encoder_layers": list(enc.layers), "decoder_layers": list(dec.layers),
+        "msda": [m.self_attn for m in enc.layers]
+        + [m.cross_attn for m in dec.layers]}
+    events = {k: [] for k in groups}
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    handles = []
+    for name, mods in groups.items():
+        for mod in mods:
+            handles.append(mod.register_forward_pre_hook(
+                lambda _m, _a, name=name: events[name].append([event()])))
+            handles.append(mod.register_forward_hook(
+                lambda _m, _a, _o, name=name: events[name][-1].append(
+                    event())))
+    try:
+        start = event()
+        fn()
+        end = event()
+    finally:
+        for h in handles:
+            h.remove()
+    torch.cuda.synchronize()
+    out = {k: sum(s.elapsed_time(e) for s, e in v) for k, v in events.items()}
+    out["forward"] = start.elapsed_time(end)
+    return out
+
+
+def capture_msda_inputs(fn) -> dict:
+    """The deformable attention kernel's inputs in one call of ``fn``, the
+    first of each query count: {Lq: (value, shapes, locations, weights)}."""
+    from unittest import mock
+
+    import canonswap_torch.ops.cuda.ms_deform_attn as MS
+
+    seen = {}
+    real = MS.ms_deform_attn_cuda
+
+    def recording(value, shapes, loc, w):
+        if loc.shape[1] not in seen:
+            seen[loc.shape[1]] = (value.clone(), shapes, loc.clone(),
+                                  w.clone())
+        return real(value, shapes, loc, w)
+
+    with mock.patch.object(MS, "ms_deform_attn_cuda", recording):
+        fn()
+    return seen
+
+
+def phase_xpose_path() -> dict:
+    """XPoseRunner at full width on the card (UniPoseConfig() defaults:
+    Swin-T, hidden 256, 6 + 6 layers, 900 queries, 68 keypoint slots, 50
+    groups; canvas (800, 1344), 350 text slots, B = 1, f32, seeded weights),
+    9 keypoints with seeded CLIP-shaped embeddings: one warm-up, three timed
+    images, the deformable attention's launches counted per image."""
+    from canonswap_torch.models.xpose.runner import XPoseRunner
+    from canonswap_torch.models.xpose.unipose import UniPoseConfig
+    from canonswap_torch.ops.cuda.ms_deform_attn import MSDA
+
+    cfg, k = UniPoseConfig(), XPOSE_KEYPOINTS
+    t0 = time.perf_counter()
+    runner = XPoseRunner(cfg=cfg, canvas=XPOSE_CANVAS, max_text_len=350,
+                         seed=0)
+    init_s = time.perf_counter() - t0
+    img = (np.random.default_rng(6).random((*XPOSE_IMAGE, 3))
+           * 255).astype(np.uint8)
+    ins, kpt = clip_like_embeddings(7, k)
+
+    def detect():
+        return runner.get_unipose_output(img, k, ins_embed=ins,
+                                         kpt_embed=kpt)
+
+    detect()  # set-up: cuBLAS and cuDNN choices
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ms, per_image = [], []
+    for _ in range(3):
+        before = MSDA.launches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        boxes, kpts, scores = detect()  # ends in a copy to the host
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        per_image.append(MSDA.launches - before)
+    launches = launch_counts()
+    if per_image != [MSDA_PER_FORWARD] * 3 or launches[:3] != (0, 0, 0):
+        raise AssertionError(
+            f"xpose: deformable attention launches per image {per_image} != "
+            f"{MSDA_PER_FORWARD}, or another kernel launched: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    m = len(boxes)
+    if not (1 <= m <= cfg.num_group and boxes.shape == (m, 4)
+            and kpts.shape == (m, 2 * k) and scores.shape == (m,)):
+        raise AssertionError(f"xpose detections {boxes.shape} {kpts.shape} "
+                             f"{scores.shape}")
+    if not all(np.isfinite(a).all() for a in (boxes, kpts, scores)):
+        raise AssertionError("xpose detections are not finite")
+    raw = runner.predict(img, k, ins_embed=ins, kpt_embed=kpt)
+    g, nk = cfg.num_group, cfg.num_body_points
+    want_shapes = {"pred_boxes": (1, g, 4), "pred_keypoints": (1, g, 3 * nk),
+                   "pred_logits": (1, g, 350), "query_scores": (1, 22323),
+                   "query_idx": (1, cfg.num_queries),
+                   "group_idx": (1, g)}
+    for name, shape in want_shapes.items():
+        if tuple(raw[name].shape) != shape:
+            raise AssertionError(f"xpose {name} {tuple(raw[name].shape)}")
+    for name in ("pred_boxes", "pred_keypoints"):
+        if not bool(torch.isfinite(raw[name]).all()):
+            raise AssertionError(f"xpose {name} is not finite")
+    if not bool(torch.isfinite(raw["pred_logits"].sigmoid()).all()):
+        raise AssertionError("xpose sigmoid(pred_logits) is not finite")
+    lmk = runner.run(img, k, ins_embed=ins, kpt_embed=kpt)
+    h0, w0 = XPOSE_IMAGE
+    if (lmk is None or lmk.shape != (k, 2) or not np.isfinite(lmk).all()
+            or not ((lmk >= 0).all() and (lmk[:, 0] <= w0).all()
+                    and (lmk[:, 1] <= h0).all())):
+        raise AssertionError(f"xpose run(): {lmk}")
+    stages = module_times(
+        runner.model, lambda: runner.predict(img, k, ins_embed=ins,
+                                             kpt_embed=kpt))
+    captured = capture_msda_inputs(
+        lambda: runner.predict(img, k, ins_embed=ins, kpt_embed=kpt))
+    med = float(np.median(ms))
+    emit("xpose_path", config="UniPoseConfig()", canvas=list(XPOSE_CANVAS),
+         image=list(XPOSE_IMAGE), keypoints=k, dtype="f32", batch=1,
+         init_s=init_s, ms_per_image=ms, median_ms=med,
+         images_per_s=1e3 / med, msda_launches_per_image=per_image,
+         max_memory_allocated=peak, module_ms=stages, detections=m,
+         top_score=float(scores.max()), landmarks=lmk.tolist())
+    return {"launches": launches[3], "captured": captured,
+            "median_ms": med}
+
+
+def _msda_cases(gen):
+    """Small cases: tests/test_ms_deform_attn.py's shapes, a ragged one
+    (locations outside [0, 1], zeroed value rows, Lq = 7), a wide one
+    (D = 40) and one of 36 samples per query (two passes of the warp's
+    lanes), as (label, value, shapes, locations, weights)."""
+    cases = []
+    for label, (n, m, d, shapes, lq, p, lo, hi, zeroed) in {
+        "base": (2, 2, 8, ((6, 4), (3, 2)), 5, 4, 0.01, 0.99, 0),
+        "ragged": (1, 3, 16, ((5, 7), (3, 4), (1, 2)), 7, 3, -0.3, 1.3, 9),
+        "wide": (1, 2, 40, ((4, 6), (2, 3)), 6, 2, -0.1, 1.1, 4),
+        "many_points": (1, 2, 8, ((4, 5), (3, 3), (2, 2)), 5, 12, -0.1, 1.1,
+                        3),
+    }.items():
+        rows = sum(h * w for h, w in shapes)
+        value = torch.randn((n, rows, m, d), generator=gen)
+        value[:, torch.randperm(rows, generator=gen)[:zeroed]] = 0.0
+        loc = lo + (hi - lo) * torch.rand((n, lq, m, len(shapes), p, 2),
+                                          generator=gen)
+        w = torch.rand((n, lq, m, len(shapes), p), generator=gen)
+        w = w / w.sum(dim=(3, 4), keepdim=True)
+        cases.append((label, value, shapes, loc, w))
+    return cases
+
+
+def phase_msda_kernel(captured: dict) -> dict:
+    """The deformable attention kernel against its plain version on the
+    card, f32: the small cases, the full-width shapes at random locations
+    (some outside [0, 1]), and the inputs the full-width path gave it (one
+    call per query count), checked, then timed beside the plain version
+    with the bound of each call."""
+    from canonswap_torch.ops.cuda.ms_deform_attn import (
+        ms_deform_attn_cuda, ms_deform_attn_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(8)
+    cases = []
+
+    def check(label, value, shapes, loc, w):
+        got = ms_deform_attn_cuda(value, shapes, loc, w)
+        want = ms_deform_attn_plain(value, shapes, loc, w)
+        torch.cuda.synchronize()
+        rel, abs_err = max_rel_err(got, want)
+        cases.append({"case": label, "lq": loc.shape[1], "rel": rel,
+                      "max_abs_err": abs_err, "tol": F32_TOL})
+        if not rel <= F32_TOL:
+            emit("msda_kernel", cases=cases, ok=False)
+            raise AssertionError(f"msda vs plain {label}: rel {rel}")
+        return got, abs_err
+
+    for label, value, shapes, loc, w in _msda_cases(gen):
+        check(label, value.to(dev), shapes, loc.to(dev), w.to(dev))
+    shapes = captured[22323][1]
+    value = torch.randn((1, 22323, 8, 32), generator=gen).to(dev)
+    for label, lq, _ in MSDA_CALLS:
+        loc = (torch.rand((1, lq, 8, 4, 4, 2), generator=gen) * 1.1
+               - 0.05).to(dev)
+        w = torch.rand((1, lq, 8, 4, 4), generator=gen).to(dev)
+        check(f"{label}_random", value, shapes, loc, w / w.sum(
+            dim=(3, 4), keepdim=True))
+    timings, worst = {}, 0.0
+    with torch.inference_mode():
+        for label, lq, calls in MSDA_CALLS:
+            value, shapes, loc, w = captured[lq]
+            got, abs_err = check(f"{label}_path", value, shapes, loc, w)
+            worst = max(worst, abs_err)
+            p1 = time_ms(lambda: ms_deform_attn_plain(value, shapes, loc, w))
+            k1 = time_ms(lambda: ms_deform_attn_cuda(value, shapes, loc, w))
+            k2 = time_ms(lambda: ms_deform_attn_cuda(value, shapes, loc, w))
+            p2 = time_ms(lambda: ms_deform_attn_plain(value, shapes, loc, w))
+            n, _, m, d = value.shape
+            samples = loc.shape[3] * loc.shape[4]
+            # per (query, head, sample, channel): 4 corner multiply-adds and
+            # the attention weight's multiply-add
+            ops = 10.0 * n * lq * m * samples * d
+            bound, bound_by = bound_ms(nbytes(value, loc, w, got), ops,
+                                       F32_PEAK_TFLOPS)
+            kms = float(np.median([k1, k2]))
+            timings[label] = {
+                "lq": lq, "calls_per_forward": calls, "kernel_ms": [k1, k2],
+                "plain_ms": [p1, p2], "bound_ms": bound, "bound_by": bound_by,
+                "bound_share": bound / kms, "mbytes": nbytes(
+                    value, loc, w, got) / 1e6, "gflop": ops / 1e9,
+                "corner_line_gbytes": 4 * 128 * n * lq * m * samples
+                * (-(-d // 32)) / 1e9, "max_abs_err": abs_err}
+    emit("msda_kernel", cases=cases, timings=timings, worst_path_max_abs_err=
+         worst, kernel_ms_per_forward=sum(
+             t["calls_per_forward"] * float(np.median(t["kernel_ms"]))
+             for t in timings.values()), ok=True)
+    return {"timings": timings, "worst": worst}
+
+
+def phase_xpose_card_vs_cpu() -> None:
+    """UniPose at TINY (canonswap_torch/models/xpose/unipose.py), the card
+    against the CPU, same seed and inputs: the image fills the canvas at
+    scale 1, so both canvases are the image itself.  The two selections
+    (the query and group top-k) must be equal, in order; boxes, keypoints
+    and sigmoid(logits) within 2e-4 max abs, the port's tolerance against
+    the JAX package: both sides compute in f32 (TF32 off), with sums in
+    another order."""
+    from canonswap_torch.models.xpose.runner import XPoseRunner
+    from canonswap_torch.models.xpose.unipose import TINY
+
+    bound, canvas, k = 2e-4, (64, 96), XPOSE_KEYPOINTS
+    img = (np.random.default_rng(9).random((64, 80, 3)) * 255).astype(
+        np.uint8)
+    ins, kpt = clip_like_embeddings(10, k)
+    runners = {dev: XPoseRunner(cfg=TINY, canvas=canvas, max_text_len=8,
+                                seed=3, device=dev) for dev in ("cpu", "cuda")}
+    reset_launch_counts()
+    got = runners["cuda"].predict(img, k, ins_embed=ins, kpt_embed=kpt)
+    got = {n: v.cpu() for n, v in got.items()}
+    launches = launch_counts()
+    if launches != (0, 0, 0, TINY.enc_layers + TINY.dec_layers):
+        raise AssertionError(f"TINY xpose on the card launched {launches}")
+    want = runners["cpu"].predict(img, k, ins_embed=ins, kpt_embed=kpt)
+    if launch_counts() != launches:
+        raise AssertionError("the CPU run launched a kernel")
+    for sel, scores in (("query_idx", "query_scores"),
+                        ("group_idx", "group_scores")):
+        if not torch.equal(got[sel], want[sel]):
+            ranked = want[scores].sort(dim=-1, descending=True)[0][0]
+            j = int((got[sel] != want[sel]).nonzero()[0, 1])
+            raise AssertionError(
+                f"xpose card vs CPU: {sel} differs first at rank {j}; CPU "
+                f"scores there {ranked[max(j - 1, 0):j + 2].tolist()}, card "
+                f"scores up to {float((got[scores] - want[scores]).abs().max())}"
+                f" from the CPU's")
+    errs = {name: float((fn(got[name]) - fn(want[name])).abs().max())
+            for name, fn in (("pred_boxes", lambda x: x),
+                             ("pred_keypoints", lambda x: x),
+                             ("pred_logits", torch.sigmoid))}
+    emit("xpose_card_vs_cpu", config="TINY", dtype="f32",
+         bound_max_abs=bound, launches=list(launches),
+         selections_equal=True, max_abs=errs)
+    if not all(e <= bound for e in errs.values()):
+        raise AssertionError(f"xpose card vs CPU: {errs} over {bound}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -675,9 +1032,13 @@ def main() -> int:
     del main_path["batches"], main_path["img"]
     phase_card_vs_cpu()
     phase_card_vs_cpu_fast()
+    xpose = phase_xpose_path()
+    msda = phase_msda_kernel(xpose.pop("captured"))
+    phase_xpose_card_vs_cpu()
     bf16 = timings["smooth_bfloat16"]
     bf16_q = warp_q["timings"]["smooth_bfloat16"]
     adaptive = qconv["timings"]["adaptive"]
+    enc = msda["timings"]["encoder"]
     print(json.dumps({"kernels": [{
         "name": "warp3d", "route": "cuda",
         "source": "canonswap_torch/csrc/warp3d.cu",
@@ -686,6 +1047,8 @@ def main() -> int:
         "max_abs_err": bf16["max_abs_err"],
         "ms": float(np.median(bf16["kernel_ms"])),
         "plain_ms": float(np.median(bf16["plain_ms"])),
+        "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
+        "library_ms": bf16["library_ms"],
     }, {
         "name": "warp3d_q", "route": "cuda",
         "source": "canonswap_torch/csrc/warp3d_q.cu",
@@ -694,6 +1057,8 @@ def main() -> int:
         "max_abs_err": warp_q["worst"],
         "ms": float(np.median(bf16_q["kernel_ms"])),
         "plain_ms": float(np.median(bf16_q["plain_ms"])),
+        "bound_ms": bf16_q["bound_ms"], "bound_by": bf16_q["bound_by"],
+        "library_ms": None,
         "exact_kernel_ms": bf16_q["exact_kernel_ms"],
     }, {
         "name": "qconv", "route": "cuda",
@@ -703,7 +1068,19 @@ def main() -> int:
         "max_abs_err": qconv["worst"],
         "ms": float(np.median(adaptive["kernel_ms"])),
         "plain_ms": adaptive["plain_f64_ms"],
+        "bound_ms": adaptive["bound_ms"], "bound_by": adaptive["bound_by"],
+        "library_ms": None,
         "cudnn_bf16_ms": float(np.median(adaptive["cudnn_bf16_ms"])),
+    }, {
+        "name": "ms_deform_attn", "route": "cuda",
+        "source": "canonswap_torch/csrc/ms_deform_attn.cu",
+        "replaces": "canonswap_tpu/ops/pallas/ms_deform_attn.py:100",
+        "launches": xpose["launches"],
+        "max_abs_err": msda["worst"],
+        "ms": float(np.median(enc["kernel_ms"])),
+        "plain_ms": float(np.median(enc["plain_ms"])),
+        "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,12 +62,12 @@ def jax_init_params():
 
 
 def test_swap_with_motion_from_port_weights():
-    core = C.CanonSwapCore(TINY, seed=3)
+    core = C.CanonSwapCore(TINY, seed=3, device="cpu")
     _compare(core, _port_params(core), seed=1)
 
 
 def test_swap_with_motion_from_jax_init(jax_init_params):
-    core = C.CanonSwapCore(TINY, seed=None)
+    core = C.CanonSwapCore(TINY, seed=None, device="cpu")
     params = jax.tree_util.tree_map(np.asarray, jax_init_params)
     core.load_state_dict(from_jax(params), strict=True)
     _compare(core, jax_init_params, seed=2)
@@ -76,7 +76,7 @@ def test_swap_with_motion_from_jax_init(jax_init_params):
 def test_uint8_output_matches_jax():
     """Quantized on the device as the JAX package does: clip(255 v) then
     truncation; a value on a step boundary may land one step apart."""
-    core = C.CanonSwapCore(TINY, seed=4)
+    core = C.CanonSwapCore(TINY, seed=4, device="cpu")
     frames, sid = _inputs(5)
     out_j, _ = _jax_swap(_port_params(core), frames, sid, as_uint8=True)
     out, _ = C.swap_with_motion(core, t(frames), t(sid), as_uint8=True)
@@ -86,7 +86,7 @@ def test_uint8_output_matches_jax():
 
 
 def test_bf16_core_runs_with_f32_keypoints():
-    core = C.CanonSwapCore(TINY, seed=6).bfloat16()
+    core = C.CanonSwapCore(TINY, seed=6, device="cpu").bfloat16()
     frames, sid = _inputs(7)
     out, motion = C.swap_with_motion(core, t(frames).bfloat16(), t(sid))
     assert out["out"].dtype == torch.bfloat16

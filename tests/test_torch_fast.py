@@ -253,7 +253,7 @@ def test_swap_with_motion_fast_tiny():
     shows that the port computes the same quantized function, not the
     exact one."""
     cfg = rep(FAST_TINY, warping=rep(FAST_TINY.warping, warp_quant=False))
-    core = C.CanonSwapCore(cfg, seed=50)
+    core = C.CanonSwapCore(cfg, seed=50, device="cpu")
     params = _port_params(core)
     g = rng(51)
     frames = g.random((2, 64, 64, 3), dtype=np.float32)
@@ -277,7 +277,7 @@ def test_swap_with_motion_fast_tiny():
 
 def test_fast_tiny_launch_counts_on_cpu():
     """CPU tensors take the plain versions: no kernel launches."""
-    core = C.CanonSwapCore(FAST_TINY, seed=52)
+    core = C.CanonSwapCore(FAST_TINY, seed=52, device="cpu")
     g = rng(53)
     frames = t(g.random((1, 64, 64, 3), dtype=np.float32))
     sid = t(g.standard_normal((1, P.TINY.swap.latent_dim), dtype=np.float32))
@@ -290,14 +290,15 @@ def test_fast_tiny_launch_counts_on_cpu():
 def test_from_jax_round_trip_fast_tiny():
     """The fast bundle keeps the parameter tree: the fast core's weights go
     to JAX and back exactly, and load into an exact core strictly."""
-    core = C.CanonSwapCore(FAST_TINY, seed=54)
+    core = C.CanonSwapCore(FAST_TINY, seed=54, device="cpu")
     params = jax.tree_util.tree_map(np.asarray, _port_params(core))
     back = from_jax(params)
     want = core.state_dict()
     assert set(back) == set(want)
     for k, v in want.items():
         torch.testing.assert_close(back[k], v, rtol=0, atol=0)
-    C.CanonSwapCore(P.TINY, seed=None).load_state_dict(back, strict=True)
+    exact = C.CanonSwapCore(P.TINY, seed=None, device="cpu")
+    exact.load_state_dict(back, strict=True)
 
 
 def _session_mapping(cfg: J.CanonSwapModelConfig) -> J.CanonSwapModelConfig:

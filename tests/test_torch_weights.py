@@ -21,7 +21,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 @pytest.fixture(scope="module")
 def core():
-    return C.CanonSwapCore(TINY, seed=0)
+    return C.CanonSwapCore(TINY, seed=0, device="cpu")
 
 
 @pytest.mark.parametrize("net", sorted(FROM_JAX))
@@ -38,15 +38,15 @@ def test_round_trip_through_convert(core, net):
 def test_from_jax_loads_the_whole_core_strictly(core):
     variables = {net: JW._CONVERTERS[net](np_state_dict(getattr(core, net)))
                  for net in FROM_JAX}
-    fresh = C.CanonSwapCore(TINY, seed=None)
+    fresh = C.CanonSwapCore(TINY, seed=None, device="cpu")
     fresh.load_state_dict(from_jax(variables), strict=True)
     for k, v in core.state_dict().items():
         assert torch.equal(fresh.state_dict()[k], v), k
 
 
 def test_seeded_init(core):
-    same = C.CanonSwapCore(TINY, seed=0).state_dict()
-    other = C.CanonSwapCore(TINY, seed=1).state_dict()
+    same = C.CanonSwapCore(TINY, seed=0, device="cpu").state_dict()
+    other = C.CanonSwapCore(TINY, seed=1, device="cpu").state_dict()
     sd = core.state_dict()
     assert all(torch.equal(sd[k], same[k]) for k in sd)
     assert not torch.equal(sd["refine.resblocks1.0.conv1.weight"],
@@ -72,7 +72,9 @@ def test_port_imports_without_jax():
         "from canonswap_torch.runtime import core, weights\n"
         "from canonswap_torch.ops.cuda import warp\n"
         "from canonswap_torch.configs import TINY\n"
-        "core.CanonSwapCore(TINY)\n"
+        "from canonswap_torch.ops.cuda import ms_deform_attn\n"
+        "from canonswap_torch.models.xpose import runner, unipose\n"
+        "core.CanonSwapCore(TINY, device='cpu')\n"
         "print('ok')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -80,3 +82,14 @@ def test_port_imports_without_jax():
                           check=False)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_core_without_a_device_needs_a_card(monkeypatch):
+    """The entry point runs on the card unless the caller asks for the CPU:
+    with no card, ``CanonSwapCore(TINY)`` raises instead of running on the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        C.CanonSwapCore(TINY)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        C.CanonSwapCore(TINY, device="cuda:0")
