@@ -7,11 +7,10 @@ canvas with a padding mask, normalized with the ImageNet statistics; the
 CLIP text embeddings come in as arrays, or from the reference's pickles
 (clip_embedding_{9,68}.pkl) where they exist.
 
-The resize runs in torch on the runner's device: bilinear, half-pixel, no
-antialias, rounded to uint8 as ``cv2.resize(INTER_LINEAR)`` stores it.  cv2
-forms its weights in 11-bit fixed point, so the two differ by at most one
-grey level (1/255 before the normalization) where a value falls near a
-rounding step; the canvas is otherwise the JAX runner's.
+The resize runs in torch on the runner's device
+(``ops/resize.py::resize_like_cv2``), at most one grey level (1/255 before
+the normalization) from ``cv2.resize(INTER_LINEAR)``; the canvas is
+otherwise the JAX runner's.
 """
 
 from __future__ import annotations
@@ -20,10 +19,10 @@ import pickle
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from canonswap_torch.models.xpose.unipose import UniPose, UniPoseConfig
 from canonswap_torch.nn.init import init_random_
+from canonswap_torch.ops.resize import resize_like_cv2
 from canonswap_torch.runtime.device import resolve_device
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -102,10 +101,7 @@ class XPoseRunner:
         scale = min(scale, ch / h0, cw / w0)
         nh, nw = int(round(h0 * scale)), int(round(w0 * scale))
         img = torch.from_numpy(np.ascontiguousarray(img_rgb)).to(self.device)
-        resized = F.interpolate(
-            img.permute(2, 0, 1)[None].float(), size=(nh, nw),
-            mode="bilinear", align_corners=False, antialias=False)
-        resized = resized.round().clamp(0, 255)[0].permute(1, 2, 0)
+        resized = resize_like_cv2(img, (nh, nw)).float()
         mean = torch.tensor(IMAGENET_MEAN, device=self.device)
         std = torch.tensor(IMAGENET_STD, device=self.device)
         canvas = torch.zeros((1, ch, cw, 3), device=self.device)

@@ -117,17 +117,25 @@ class CudaKernel:
 
 def build_all(kernels) -> None:
     """Build the kernels whose libraries are missing, one nvcc process per
-    source, all started at once, then load every one.  Every nvcc is waited
-    for before a failed build raises."""
-    pending = [k for k in kernels
-               if k._fn is None and not k._library_path().exists()]
-    started = [(k, k._start_build()) for k in pending]
+    source (kernels that share a source share its build), all started at
+    once, then load every one.  Every nvcc is waited for before a failed
+    build raises."""
+    by_library: dict[Path, list[CudaKernel]] = {}
+    for k in kernels:
+        if k._fn is None and not k._library_path().exists():
+            by_library.setdefault(k._library_path(), []).append(k)
+    started = [(group, group[0]._start_build())
+               for group in by_library.values()]
     errors = []
-    for k, build in started:
+    for group, build in started:
         try:
-            k._finish_build(*build)
+            group[0]._finish_build(*build)
         except RuntimeError as e:
             errors.append(e)
+            continue
+        for k in group[1:]:
+            k.build_seconds, k.build_log = (group[0].build_seconds,
+                                            group[0].build_log)
     if errors:
         raise errors[0]
     for k in kernels:

@@ -1,0 +1,171 @@
+"""The toolchain probes: CUDA kernel wrappers and plain versions.
+
+Replace the three Pallas probes of the JAX package's tools, whose kernels
+``canonswap_torch/csrc/probes.cu`` computes (its header says what bounds
+each on the H100):
+
+  dyn_gather  ``tools/profile_r2b.py::dyn_gather`` -> ``dg_kernel``:
+              ``out[b, r, c] = x[b, idx[b, r, c], c]``, i.e.
+              ``take_along_axis(x[b], idx[b], axis=0)`` for each b (the
+              probe maps it over a batch with ``jax.vmap``);
+  dbl         ``tools/profile_r2c.py::dbl`` -> ``dbl_kernel``: ``x * 2``;
+  mm          ``tools/profile_r2c.py::mm`` -> ``mm_kernel``: ``a @ b``,
+              f32 in, f32 sums, f32 out.
+
+The gather follows JAX's index semantics: an index in [-R, 0) wraps to
+index + R and one outside [-R, R) gives NaN.  ``torch.gather`` raises on
+both, so the plain version wraps and fills itself.
+
+Device rule: CPU tensors take the plain versions; CUDA tensors launch the
+kernels or raise.  Nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from canonswap_torch.ops.cuda.build import CudaKernel
+
+_c_int = ctypes.c_int
+_c_ptr = ctypes.c_void_p
+
+# three entry points of one source: one library, built once
+GATHER = CudaKernel("probes.cu", "probes_gather",
+                    [_c_ptr] * 3 + [_c_int] * 3 + [_c_ptr])
+DOUBLE = CudaKernel("probes.cu", "probes_double",
+                    [_c_ptr] * 2 + [ctypes.c_int64, _c_ptr])
+MATMUL = CudaKernel("probes.cu", "probes_matmul",
+                    [_c_ptr] * 3 + [_c_int] * 3 + [_c_ptr])
+
+_INT_MAX = 2**31 - 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_cuda(name: str, tensors, dtypes) -> None:
+    """Dtypes, then devices, then layout."""
+    for t, dtype in zip(tensors, dtypes):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} takes {dtype}, got {t.dtype}")
+    if not all(t.is_cuda and t.device == tensors[0].device for t in tensors):
+        raise ValueError(f"{name} needs its tensors on one CUDA device, got "
+                         + ", ".join(str(t.device) for t in tensors))
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+
+
+# ---- gather --------------------------------------------------------------
+
+
+def _check_gather_shapes(x: torch.Tensor, idx: torch.Tensor) -> None:
+    if x.dim() != 3 or idx.shape != x.shape:
+        raise ValueError(f"dyn_gather wants x and idx of one shape (B, R, C), "
+                         f"got {tuple(x.shape)} and {tuple(idx.shape)}")
+
+
+def dyn_gather_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[b, r, c] = x[b, idx[b, r, c], c]`` with JAX's wrap of negative
+    indices and NaN for an index outside [-R, R)."""
+    _check_gather_shapes(x, idx)
+    rows = x.shape[1]
+    j = idx.long()
+    j = torch.where(j < 0, j + rows, j)
+    inside = (j >= 0) & (j < rows)
+    got = torch.gather(x, 1, torch.where(inside, j, 0))
+    return torch.where(inside, got, torch.full_like(got, float("nan")))
+
+
+def dyn_gather_cuda(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Launch the gather kernel (x f32 and idx int32 on one card)."""
+    _check_gather_shapes(x, idx)
+    _check_cuda("dyn_gather", (x, idx), (torch.float32, torch.int32))
+    b, r, c = x.shape
+    if max(b, r, c) > _INT_MAX:
+        raise ValueError(f"dyn_gather: shape {tuple(x.shape)} out of range")
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        GATHER.launch(x.data_ptr(), idx.data_ptr(), out.data_ptr(), b, r, c,
+                      _stream(x))
+    return out
+
+
+def dyn_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The batched row gather (module docstring).  CPU tensors take the
+    plain version; CUDA tensors the kernel."""
+    if x.device.type == "cpu" and idx.device.type == "cpu":
+        return dyn_gather_plain(x, idx)
+    return dyn_gather_cuda(x, idx)
+
+
+# ---- doubling ------------------------------------------------------------
+
+
+def dbl_plain(x: torch.Tensor) -> torch.Tensor:
+    return x * 2.0
+
+
+def dbl_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch the doubling kernel (f32 on a card)."""
+    _check_cuda("dbl", (x,), (torch.float32,))
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        DOUBLE.launch(x.data_ptr(), out.data_ptr(), x.numel(), _stream(x))
+    return out
+
+
+def dbl(x: torch.Tensor) -> torch.Tensor:
+    """``x * 2``.  A CPU tensor takes the plain version; a CUDA tensor the
+    kernel."""
+    if x.device.type == "cpu":
+        return dbl_plain(x)
+    return dbl_cuda(x)
+
+
+# ---- matmul --------------------------------------------------------------
+
+
+def _check_mm_shapes(a: torch.Tensor, b: torch.Tensor) -> None:
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"mm wants a (M, K) and b (K, N), got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+
+
+def mm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` summed in f64, rounded once to f32."""
+    _check_mm_shapes(a, b)
+    return (a.double() @ b.double()).float()
+
+
+def mm_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch the tiled f32 matmul kernel (f32 on one card)."""
+    _check_mm_shapes(a, b)
+    _check_cuda("mm", (a, b), (torch.float32, torch.float32))
+    (m, k), n = a.shape, b.shape[1]
+    if max(m, k, n) > _INT_MAX:
+        raise ValueError(f"mm: shapes {tuple(a.shape)} @ {tuple(b.shape)} "
+                         f"out of range")
+    if (m + 63) // 64 > 65535:
+        raise ValueError(f"mm: M = {m} over the kernel's grid (65535 x 64)")
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(a.device):
+        MATMUL.launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n,
+                      _stream(a))
+    return out
+
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in f32 (module docstring).  CPU tensors take the plain
+    version; CUDA tensors the kernel."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return mm_plain(a, b)
+    return mm_cuda(a, b)

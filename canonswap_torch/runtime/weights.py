@@ -224,6 +224,57 @@ def refine_from_jax(variables: dict) -> dict[str, torch.Tensor]:
     return r.sd
 
 
+def landmark_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """``MobileLandmarkNet``'s JAX variables -> the port's
+    ``models/landmark.py::MobileLandmarkNet`` state_dict (the names are the
+    JAX tree's)."""
+    r = _Reader(variables)
+    r.conv("stem", "stem")
+    r.array("stem_act/alpha", "stem_act.alpha")
+    for i in range(r.count("dw{}")):
+        r.conv_dw(f"dw{i}/dw", f"dw{i}.dw")
+        r.array(f"dw{i}/dw_act/alpha", f"dw{i}.dw_act.alpha")
+        r.conv(f"dw{i}/pw", f"dw{i}.pw")
+        r.array(f"dw{i}/pw_act/alpha", f"dw{i}.pw_act.alpha")
+    r.conv_dw("gdc", "gdc")
+    r.dense("fc0", "fc0")
+    r.array("fc0_act/alpha", "fc0_act.alpha")
+    r.dense("head", "head")
+    return r.sd
+
+
+def segformer_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """The JAX ``Segformer``'s variables -> HF
+    ``SegformerForSemanticSegmentation`` keys, the port's
+    ``models/parsing.py::Segformer`` state_dict (the inverse of
+    ``canonswap_tpu/models/parsing.py::convert_hf_segformer``)."""
+    r = _Reader(variables)
+    e = "segformer.encoder"
+    for i in range(r.count("patch_embed{}")):
+        r.conv(f"patch_embed{i}", f"{e}.patch_embeddings.{i}.proj")
+        r.affine(f"patch_norm{i}", f"{e}.patch_embeddings.{i}.layer_norm")
+        for j in range(r.count(f"stage{i}_block{{}}")):
+            b, t = f"stage{i}_block{j}", f"{e}.block.{i}.{j}"
+            r.affine(f"{b}/norm1", f"{t}.layer_norm_1")
+            for name in ("query", "key", "value"):
+                r.dense(f"{b}/attn/{name}", f"{t}.attention.self.{name}")
+            if r.has(f"{b}/attn/sr"):
+                r.conv(f"{b}/attn/sr", f"{t}.attention.self.sr")
+                r.affine(f"{b}/attn/sr_norm", f"{t}.attention.self.layer_norm")
+            r.dense(f"{b}/attn/out", f"{t}.attention.output.dense")
+            r.affine(f"{b}/norm2", f"{t}.layer_norm_2")
+            r.dense(f"{b}/ffn/dense1", f"{t}.mlp.dense1")
+            r.conv_dw(f"{b}/ffn/dwconv", f"{t}.mlp.dwconv.dwconv")
+            r.dense(f"{b}/ffn/dense2", f"{t}.mlp.dense2")
+        r.affine(f"stage_norm{i}", f"{e}.layer_norm.{i}")
+    for i in range(r.count("linear_c{}")):
+        r.dense(f"linear_c{i}", f"decode_head.linear_c.{i}.proj")
+    r.conv("linear_fuse", "decode_head.linear_fuse")
+    r.bn("bn", "decode_head.batch_norm")
+    r.conv("classifier", "decode_head.classifier")
+    return r.sd
+
+
 FROM_JAX = {
     "appearance_feature_extractor": appearance_from_jax,
     "motion_extractor": motion_from_jax,

@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each:
-  1. device: card name and power limit, torch/CUDA versions; the four
-     kernels built at once (one nvcc per source) and their build times;
+  1. device: card name and power limit, torch/CUDA versions; the seven
+     kernels built at once (one nvcc per source: the three probes share
+     one) and their build times;
   2. kernel vs plain: each CUDA kernel against its plain PyTorch version at
      the main paths' shapes, f32 and bf16, and timed at B=8 CANONICAL: the
      exact warp (against its plain version), the W8A8 warp (against its plain
@@ -27,7 +28,18 @@ Phases, one JSON line each:
      shapes, at the full-width shapes, and on the inputs the xpose path
      gave it, timed there beside the plain version and its bound;
   8. xpose card vs CPU: UniPose at TINY on both, equal top-k selections,
-     outputs within 2e-4.
+     outputs within 2e-4;
+  9. probe kernels: the gather, doubling and matmul probes against their
+     plain versions at the JAX tools' shapes (the gather also at a small
+     ragged shape with negative and out-of-range indices), timed beside
+     their plain versions, library calls and bounds; then the probe path,
+     canonswap_torch.tools.profile_r2's stages through its entry point;
+ 10. sidecars path: Landmark203Runner at full width tracking 16 frames of a
+     seeded 720p clip, and FaceParser (Segformer MiT-B1, 19 labels) on
+     B=8 seeded 256 crops, f32, timed on the host clock, no kernel
+     launched;
+ 11. sidecars card vs CPU: Segformer at TINY and MobileLandmarkNet at a
+     small input, outputs within 2e-4, masks equal but at near ties.
 Before the last line, one line lists every kernel with its launches on the
 main paths, its error against its plain version, its time, the plain
 version's, its bound and a library call's time where one computes the same
@@ -143,18 +155,28 @@ def smooth_grid(b, d, h, w, scale, gen, device, dtype):
     return (ident + disp).to(device=device, dtype=dtype).contiguous()
 
 
+KERNEL_NAMES = ("warp3d", "warp3d_q", "qconv", "ms_deform_attn",
+                "dyn_gather", "dbl", "mm")
+
+
 def kernels():
     from canonswap_torch.ops.cuda.ms_deform_attn import MSDA
+    from canonswap_torch.ops.cuda.probes import DOUBLE, GATHER, MATMUL
     from canonswap_torch.ops.cuda.qconv import QCONV
     from canonswap_torch.ops.cuda.warp import WARP3D, WARP3D_Q
 
-    return WARP3D, WARP3D_Q, QCONV, MSDA
+    return WARP3D, WARP3D_Q, QCONV, MSDA, GATHER, DOUBLE, MATMUL
 
 
-def launch_counts() -> tuple[int, int, int, int]:
-    """(exact warp, W8A8 warp, W8A8 conv, deformable attention) launches
-    so far."""
+def launch_counts() -> tuple[int, ...]:
+    """Launches so far of each kernel, in KERNEL_NAMES' order."""
     return tuple(k.launches for k in kernels())
+
+
+def only(**counts) -> tuple[int, ...]:
+    """The launch counts of a path that runs the named kernels and no
+    other, in KERNEL_NAMES' order."""
+    return tuple(counts.get(name, 0) for name in KERNEL_NAMES)
 
 
 def reset_launch_counts() -> None:
@@ -179,8 +201,8 @@ def phase_device() -> None:
          cuda=torch.version.cuda, python=sys.version.split()[0],
          build_s={k.source.name: k.build_seconds for k in kernels()},
          build_and_load_s=load_s)
-    for k in kernels():
-        print(k.build_log.strip(), flush=True)
+    for log in dict.fromkeys(k.build_log for k in kernels()):
+        print(log.strip(), flush=True)
 
 
 def phase_kernel() -> dict:
@@ -491,10 +513,10 @@ def phase_main_path() -> dict:
         if img.shape != (b, 2 * s, 2 * s, 3) or img.dtype != torch.uint8:
             raise AssertionError(f"main path output {img.shape} {img.dtype}")
     launches = launch_counts()
-    if per_batch != [2, 2, 2] or launches[1:] != (0, 0, 0):
+    if per_batch != [2, 2, 2] or launches != only(warp3d=6):
         raise AssertionError(
             f"warp launches per batch {per_batch} != 2, or the exact path "
-            f"launched the W8A8 kernels: {launches}")
+            f"launched another kernel: {launches}")
     peak = torch.cuda.max_memory_allocated()
     img_f = img.float()
     # the same path at in-range motion: the warp gathers inside the volume
@@ -527,7 +549,7 @@ def phase_main_path_fast(exact: dict) -> dict:
 
     dev, dtype, b = torch.device("cuda"), torch.bfloat16, 8
     cfg = fast_bundle(CANONICAL)
-    want = (0, 2, qconv_sites(cfg), 0)
+    want = only(warp3d_q=2, qconv=qconv_sites(cfg))
     t0 = time.perf_counter()
     core = C.CanonSwapCore(cfg, seed=0).to(dtype)
     init_s = time.perf_counter() - t0
@@ -553,8 +575,8 @@ def phase_main_path_fast(exact: dict) -> dict:
     launches = launch_counts()
     if per_batch != [want] * 3:
         raise AssertionError(
-            f"fast path launches (exact warp, W8A8 warp, qconv, msda) per "
-            f"batch {per_batch} != {want}")
+            f"fast path launches per batch ({KERNEL_NAMES}) {per_batch} != "
+            f"{want}")
     peak = torch.cuda.max_memory_allocated()
     fast_vs_exact = float(
         (img.float() - exact["img"].float()).abs().mean())
@@ -570,7 +592,7 @@ def phase_main_path_fast(exact: dict) -> dict:
          batch=b, init_s=init_s, ms_per_batch=ms, median_ms=med,
          frames_per_s=b / (med / 1e3), exact_median_ms=exact["median_ms"],
          launches_per_batch=[list(p) for p in per_batch],
-         launches_order=["warp3d", "warp3d_q", "qconv", "ms_deform_attn"],
+         launches_order=list(KERNEL_NAMES),
          max_memory_allocated=peak, stage_ms=stages,
          stage_sum_ms=sum(stages.values()), exact_stage_ms=exact["stage_ms"],
          mean_abs_uint8_fast_vs_exact=fast_vs_exact,
@@ -675,10 +697,11 @@ def phase_card_vs_cpu_fast() -> None:
     reset_launch_counts()
     card = run(gpu_core, dev, torch.float32)
     launches = launch_counts()
-    if launches != (0, 4, 2 * qconv_sites(cfg), 0):
+    want = only(warp3d_q=4, qconv=2 * qconv_sites(cfg))
+    if launches != want:
         raise AssertionError(
-            f"fast TINY on the card launched (exact warp, W8A8 warp, qconv, "
-            f"msda) {launches}, not (0, 4, {2 * qconv_sites(cfg)}, 0)")
+            f"fast TINY on the card launched ({KERNEL_NAMES}) {launches}, "
+            f"not {want}")
     with mock.patch.object(Q, "conv_w8a8_cuda", Q.conv_w8a8_plain), \
             mock.patch.object(W, "grid_sample_3d_quant_cuda",
                               W.grid_sample_3d_quant_plain):
@@ -830,7 +853,8 @@ def phase_xpose_path() -> dict:
         ms.append((time.perf_counter() - t1) * 1e3)
         per_image.append(MSDA.launches - before)
     launches = launch_counts()
-    if per_image != [MSDA_PER_FORWARD] * 3 or launches[:3] != (0, 0, 0):
+    if (per_image != [MSDA_PER_FORWARD] * 3
+            or launches != only(ms_deform_attn=3 * MSDA_PER_FORWARD)):
         raise AssertionError(
             f"xpose: deformable attention launches per image {per_image} != "
             f"{MSDA_PER_FORWARD}, or another kernel launched: {launches}")
@@ -990,7 +1014,7 @@ def phase_xpose_card_vs_cpu() -> None:
     got = runners["cuda"].predict(img, k, ins_embed=ins, kpt_embed=kpt)
     got = {n: v.cpu() for n, v in got.items()}
     launches = launch_counts()
-    if launches != (0, 0, 0, TINY.enc_layers + TINY.dec_layers):
+    if launches != only(ms_deform_attn=TINY.enc_layers + TINY.dec_layers):
         raise AssertionError(f"TINY xpose on the card launched {launches}")
     want = runners["cpu"].predict(img, k, ins_embed=ins, kpt_embed=kpt)
     if launch_counts() != launches:
@@ -1016,6 +1040,267 @@ def phase_xpose_card_vs_cpu() -> None:
         raise AssertionError(f"xpose card vs CPU: {errs} over {bound}")
 
 
+def nan_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Bit-identical values and NaNs in the same places."""
+    return torch.equal(got.isnan(), want.isnan()) and torch.equal(
+        got.nan_to_num(), want.nan_to_num())
+
+
+def phase_probe_kernels() -> dict:
+    """The three probe kernels against their plain versions: the gather at
+    a small ragged shape with negative and out-of-range indices and at the
+    probe's (16, 1024, 2048), bit-identical with NaNs in the same places;
+    the doubling at (256, 512), bit-identical; the matmul at (512, 512) @
+    (512, 512) within 1e-5 of max |ref| against the f64 plain version.
+    Each timed at the probe's shape beside its plain version, a library
+    call and its bound.  Then the probe path: profile_r2's stages through
+    the entry point, one launch of each probe kernel and none of the
+    others, and the tool's own timed lines."""
+    from canonswap_torch.ops.cuda import probes as PR
+    from canonswap_torch.tools import profile_r2
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(11)
+    cases = []
+
+    def fail(msg):
+        emit("probe_kernels", cases=cases, ok=False)
+        raise AssertionError(msg)
+
+    # ragged: indices in [-1.25 R, 1.25 R), some wrapping, some NaN
+    x = torch.randn((3, 37, 45), generator=gen).to(dev)
+    idx = torch.randint(-46, 46, (3, 37, 45), generator=gen,
+                        dtype=torch.int32).to(dev)
+    got, want = PR.dyn_gather_cuda(x, idx), PR.dyn_gather_plain(x, idx)
+    torch.cuda.synchronize()
+    cases.append({"case": "gather_ragged", "nan": int(want.isnan().sum()),
+                  "equal": nan_equal(got, want)})
+    if not (cases[-1]["equal"] and cases[-1]["nan"] > 0):
+        fail(f"dyn_gather vs plain, ragged: {cases[-1]}")
+
+    stages = dict(profile_r2.stages(dev, seed=12))
+    _, (xg, ig) = stages["pallas_dynamic_gather_16x"]
+    _, (xd,) = stages["pallas_simple_vpu"]
+    _, (a, b) = stages["pallas_simple_mxu"]
+    ig64 = ig.long()  # torch.gather's index type
+    timings = {}
+    for name, kernel, plain, library, args, lib_args, ops in (
+            ("dyn_gather", PR.dyn_gather_cuda, PR.dyn_gather_plain,
+             lambda x, i: torch.gather(x, 1, i), (xg, ig), (xg, ig64), 0.0),
+            ("dbl", PR.dbl_cuda, PR.dbl_plain,
+             lambda x: torch.mul(x, 2.0), (xd,), (xd,), float(xd.numel())),
+            ("mm", PR.mm_cuda, PR.mm_plain, torch.matmul, (a, b), (a, b),
+             2.0 * a.shape[0] * a.shape[1] * b.shape[1])):
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        if name == "mm":
+            rel, abs_err = max_rel_err(got, want)
+            ok = rel <= F32_TOL
+        else:
+            rel, abs_err = 0.0, float(
+                (got - want).nan_to_num().abs().max())
+            ok = nan_equal(got, want)
+        cases.append({"case": f"{name}_full", "shape": [list(t.shape)
+                                                        for t in args],
+                      "rel": rel, "max_abs_err": abs_err, "ok": ok})
+        if not ok:
+            fail(f"{name} vs plain at the probe's shape: {cases[-1]}")
+        p1 = time_ms(lambda: plain(*args))
+        k1 = time_ms(lambda: kernel(*args))
+        k2 = time_ms(lambda: kernel(*args))
+        p2 = time_ms(lambda: plain(*args))
+        lib = time_ms(lambda: library(*lib_args))
+        bound, bound_by = bound_ms(nbytes(*args, got), ops, F32_PEAK_TFLOPS)
+        kms = float(np.median([k1, k2]))
+        timings[name] = {"kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+                         "library_ms": lib, "bound_ms": bound,
+                         "bound_by": bound_by, "bound_share": bound / kms,
+                         "mbytes": nbytes(*args, got) / 1e6,
+                         "gflop": ops / 1e9, "max_abs_err": abs_err}
+    del got, want, ig64
+    # the probe path: each stage once through the entry point
+    reset_launch_counts()
+    for name, (fn, args) in stages.items():
+        out = fn(*args)
+        torch.cuda.synchronize()
+        # the first input's shape, but the matmul's columns are b's
+        if out.shape != args[0].shape[:-1] + (args[-1].shape[-1],):
+            fail(f"probe stage {name}: output {tuple(out.shape)}")
+    launches = launch_counts()
+    if launches != only(dyn_gather=1, dbl=1, mm=1):
+        fail(f"probe path launched ({KERNEL_NAMES}) {launches}")
+    emit("probe_kernels", cases=cases, timings=timings,
+         library_gather_index="int64", path_launches=list(launches), ok=True)
+    del stages, xg, ig
+    profile_r2.main([])  # the tool's lines: {"stage", "ms_per_step", ...}
+    return {"timings": timings, "launches": launches}
+
+
+SIDECAR_CLIP = (16, 720, 1280)  # frames, height, width
+SIDECAR_CROPS = (8, 256)  # batch, side
+
+
+def seeded_clip(seed: int) -> np.ndarray:
+    """A 720p clip: a smooth pattern drifting a few pixels a frame, plus
+    noise, uint8 RGB (T, H, W, 3)."""
+    t, h, w = SIDECAR_CLIP
+    g = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = []
+    for i in range(t):
+        base = np.stack([np.sin((xx + 3 * i) / (40 + 9 * c)) * np.cos(
+            (yy - 2 * i) / (55 + 7 * c)) for c in range(3)], -1)
+        noise = g.standard_normal((h, w, 3), dtype=np.float32)
+        frames.append(np.clip(127 + 90 * base + 12 * noise, 0, 255))
+    return np.stack(frames).astype(np.uint8)
+
+
+def phase_sidecars_path() -> dict:
+    """The per-frame sidecars at full width, f32 (the JAX session's
+    precision), through their entry points on the card:
+    Landmark203Runner (MobileLandmarkNet(203) at 224) tracking a seeded
+    720p clip, frame 0 without landmarks and each later frame from the
+    previous frame's points, ms per frame on the host clock (upload, crop,
+    net and the copy back); FaceParser (SegformerConfig(): MiT-B1, 19
+    labels) on B=8 seeded 256 crops, ms per batch (median of 3, ending in
+    the copy to the host), with the device ms of its parts.  Neither
+    launches a kernel of the port."""
+    from canonswap_torch.models import parsing as PP
+    from canonswap_torch.models.landmark import Landmark203Runner
+    from canonswap_torch.ops.affine import soft_erosion
+
+    t0 = time.perf_counter()
+    lmk_runner = Landmark203Runner(seed=1)
+    lmk_init_s = time.perf_counter() - t0
+    clip = seeded_clip(13)
+    lmk_runner.run(clip[0])  # set-up: cuDNN's choices
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    pts, frame_ms = None, []
+    for frame in clip:
+        t1 = time.perf_counter()
+        pts = lmk_runner.run(frame, pts)  # ends in the copy to the host
+        frame_ms.append((time.perf_counter() - t1) * 1e3)
+        if pts.shape != (203, 2) or not np.isfinite(pts).all():
+            raise AssertionError(f"landmarks {pts.shape}, finite "
+                                 f"{np.isfinite(pts).all()}")
+    lmk_peak = torch.cuda.max_memory_allocated()
+    # the crop's share: upload and warp of the same frames, synchronized
+    crop_ms = []
+    for frame in clip:
+        t1 = time.perf_counter()
+        lmk_runner.crop(frame, pts)
+        torch.cuda.synchronize()
+        crop_ms.append((time.perf_counter() - t1) * 1e3)
+
+    t0 = time.perf_counter()
+    parser = PP.FaceParser(PP.SegformerConfig(), seed=0)
+    parse_init_s = time.perf_counter() - t0
+    b, side = SIDECAR_CROPS
+    g = np.random.default_rng(14)
+    batches = [(g.random((b, side, side, 3)) * 255).astype(np.uint8)
+               for _ in range(4)]
+    parser.parse_masks(batches[0])  # set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batch_ms = []
+    for crops in batches[1:]:
+        t1 = time.perf_counter()
+        masks = parser.parse_masks(crops).cpu()
+        batch_ms.append((time.perf_counter() - t1) * 1e3)
+        if masks.shape != (b, 2 * side, 2 * side, 1):
+            raise AssertionError(f"masks {tuple(masks.shape)}")
+        if not (bool(torch.isfinite(masks).all()) and float(masks.min()) >= 0
+                and float(masks.max()) <= 1):
+            raise AssertionError("masks not finite in [0, 1]")
+    parse_peak = torch.cuda.max_memory_allocated()
+    launches = launch_counts()
+    if launches != only():
+        raise AssertionError(f"the sidecars launched ({KERNEL_NAMES}) "
+                             f"{launches}")
+    # device ms of the parser's parts on one batch (CUDA events)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.inference_mode():
+        crops = torch.as_tensor(batches[1]).to("cuda")
+        ev[0].record()
+        logits = parser.model(PP.preprocess(crops))
+        ev[1].record()
+        mask = PP.face_mask_from_logits(logits, (2 * side, 2 * side))
+        ev[2].record()
+        soft_erosion(mask, 21, 0.9, 3)
+        ev[3].record()
+    torch.cuda.synchronize()
+    parts = dict(zip(("segformer", "mask_upsample_argmax", "soft_erosion"),
+                     (ev[i].elapsed_time(ev[i + 1]) for i in range(3))))
+    emit("sidecars_path", dtype="f32", clip=list(SIDECAR_CLIP),
+         landmark={"config": "MobileLandmarkNet(203), 224", "init_s":
+                   lmk_init_s, "ms_per_frame": frame_ms, "median_ms":
+                   float(np.median(frame_ms)), "crop_ms_median": float(
+                       np.median(crop_ms)), "max_memory_allocated": lmk_peak,
+                   "last_points_mean": pts.mean(0).tolist()},
+         parsing={"config": "SegformerConfig() (MiT-B1, 19 labels)",
+                  "batch": b, "crop": side, "init_s": parse_init_s,
+                  "ms_per_batch": batch_ms, "median_ms": float(
+                      np.median(batch_ms)), "part_ms": parts,
+                  "max_memory_allocated": parse_peak,
+                  "mask_mean": float(masks.mean())},
+         launches=list(launches))
+    return {"landmark_ms": float(np.median(frame_ms)),
+            "parse_ms": float(np.median(batch_ms))}
+
+
+def phase_sidecars_card_vs_cpu() -> None:
+    """Segformer at TINY (tests/test_parsing_parity.py's widths) and
+    MobileLandmarkNet(203) at a 64 input, the card against the CPU, same
+    seeded weights and inputs, f32, TF32 off: logits and landmark outputs
+    within 2e-4 max abs (the port's tolerance against the JAX package:
+    the same f32 sums in another order); masks equal except where the
+    CPU's top two upsampled logits are within 1e-5."""
+    from canonswap_torch.models import parsing as PP
+    from canonswap_torch.models.landmark import MobileLandmarkNet
+    from canonswap_torch.nn.init import init_random_
+    from canonswap_torch.ops.resize import bilinear_resize
+
+    bound, tie = 2e-4, 1e-5
+    g = np.random.default_rng(15)
+    crops = (g.random((2, 64, 64, 3)) * 255).astype(np.uint8)
+    parsers = {dev: PP.FaceParser(PP.TINY, seed=4, output_size=128,
+                                  device=dev) for dev in ("cpu", "cuda")}
+    reset_launch_counts()
+    logits = {dev: p.logits(crops).cpu() for dev, p in parsers.items()}
+    masks = {dev: PP.face_mask_from_logits(v, (128, 128))
+             for dev, v in logits.items()}
+    up = bilinear_resize(logits["cpu"].permute(0, 3, 1, 2), (128, 128))
+    top2 = up.topk(2, dim=1).values
+    near_tie = (top2[:, 0] - top2[:, 1]) <= tie
+    flipped = masks["cuda"][..., 0] != masks["cpu"][..., 0]
+    soft = {dev: p.parse_masks(crops).cpu() for dev, p in parsers.items()}
+    net = init_random_(MobileLandmarkNet(203, input_size=64), 5).eval()
+    x = torch.from_numpy(g.random((2, 64, 64, 3), dtype=np.float32))
+    with torch.inference_mode():
+        lmk = {"cpu": net(x), "cuda": net.to("cuda")(x.to("cuda")).cpu()}
+    launches = launch_counts()
+    errs = {"logits_max_abs": float((logits["cuda"] - logits["cpu"]).abs()
+                                    .max()),
+            "landmark_max_abs": float((lmk["cuda"] - lmk["cpu"]).abs().max())}
+    clean = ~flipped.any(dim=(1, 2))
+    errs["soft_mask_max_abs_unflipped"] = float(
+        (soft["cuda"][clean] - soft["cpu"][clean]).abs().max()) \
+        if clean.any() else None
+    emit("sidecars_card_vs_cpu", config="Segformer TINY, MobileLandmarkNet "
+         "at 64", dtype="f32", bound_max_abs=bound, tie=tie, max_abs=errs,
+         masks_flipped=int(flipped.sum()), near_ties=int(near_tie.sum()),
+         launches=list(launches))
+    if launches != only():
+        raise AssertionError(f"sidecars TINY launched {launches}")
+    if bool((flipped & ~near_tie).any()):
+        raise AssertionError("sidecars card vs CPU: a mask differs away from "
+                             "a near tie")
+    if not all(e is None or e <= bound for e in errs.values()):
+        raise AssertionError(f"sidecars card vs CPU: {errs} over {bound}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1035,6 +1320,9 @@ def main() -> int:
     xpose = phase_xpose_path()
     msda = phase_msda_kernel(xpose.pop("captured"))
     phase_xpose_card_vs_cpu()
+    probes = phase_probe_kernels()
+    phase_sidecars_path()
+    phase_sidecars_card_vs_cpu()
     bf16 = timings["smooth_bfloat16"]
     bf16_q = warp_q["timings"]["smooth_bfloat16"]
     adaptive = qconv["timings"]["adaptive"]
@@ -1081,7 +1369,20 @@ def main() -> int:
         "plain_ms": float(np.median(enc["plain_ms"])),
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
         "library_ms": None,
-    }]}), flush=True)
+    }] + [{
+        "name": name, "route": "cuda",
+        "source": "canonswap_torch/csrc/probes.cu", "replaces": replaces,
+        "launches": probes["launches"][KERNEL_NAMES.index(name)],
+        "max_abs_err": probes["timings"][name]["max_abs_err"],
+        "ms": float(np.median(probes["timings"][name]["kernel_ms"])),
+        "plain_ms": float(np.median(probes["timings"][name]["plain_ms"])),
+        "bound_ms": probes["timings"][name]["bound_ms"],
+        "bound_by": probes["timings"][name]["bound_by"],
+        "library_ms": probes["timings"][name]["library_ms"],
+    } for name, replaces in (("dyn_gather", "tools/profile_r2b.py:192"),
+                             ("dbl", "tools/profile_r2c.py:56"),
+                             ("mm", "tools/profile_r2c.py:71"))]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -27,6 +27,33 @@ def jax_variables(module: torch.nn.Module, convert, **kw) -> dict:
     return convert(np_state_dict(module), **kw)
 
 
+def randomized(variables, seed: int = 0) -> dict:
+    """A JAX variable tree with every leaf drawn anew from ``seed``, so a
+    parity test exercises each one (flax inits norms to 1/0 and PReLU to a
+    constant): kernels LeCun normal over all but the last axis, biases and
+    means N(0, 0.05^2), scales 1 + N(0, 0.1^2), PReLU slopes 0.25 +
+    N(0, 0.1^2), variances U(0.5, 1.5)."""
+    import jax
+
+    g = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        shape, name = np.shape(leaf), str(getattr(path[-1], "key", path[-1]))
+        if name == "kernel":
+            value = g.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
+        elif name == "var":
+            value = 0.5 + g.random(shape)
+        elif name == "scale":
+            value = 1.0 + 0.1 * g.standard_normal(shape)
+        elif name == "alpha":
+            value = 0.25 + 0.1 * g.standard_normal(shape)
+        else:
+            value = 0.05 * g.standard_normal(shape)
+        return value.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, variables)
+
+
 def t(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x))
 

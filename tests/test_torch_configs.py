@@ -6,8 +6,10 @@ import dataclasses
 
 import pytest
 
-from canonswap_tpu.configs import model_config as J
 from canonswap_torch import configs as P
+from canonswap_torch.models import parsing as PP
+from canonswap_tpu.configs import model_config as J
+from canonswap_tpu.models import parsing as JP
 
 SUBCONFIGS = ["appearance", "motion", "warping", "warping.dense_motion",
               "spade", "swap"]
@@ -52,3 +54,15 @@ def test_jax_options_the_port_lacks_are_off():
         assert cfg.warping.estimate_occlusion_map and cfg.spade.upscale == 2
         assert not cfg.warping.dense_motion.int8_conv
         assert cfg.spade.norm_scale == 1 and not cfg.spade.spectral_norm
+
+
+@pytest.mark.parametrize("port,ref", [
+    (PP.SegformerConfig(), JP.SegformerConfig()),
+    (PP.TINY, JP.SegformerConfig(hidden_sizes=(16, 24, 40, 64),
+                                 depths=(1, 1, 1, 1), num_heads=(1, 2, 5, 8),
+                                 decoder_hidden=64))], ids=["MiT-B1", "TINY"])
+def test_segformer_config_matches_the_jax_dataclass(port, ref):
+    """Field for field, names in order; TINY is test_parsing_parity.py's."""
+    names = [f.name for f in dataclasses.fields(port)]
+    assert names == [f.name for f in dataclasses.fields(ref)]
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)

@@ -7,14 +7,23 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
-from canonswap_tpu.runtime import weights as JW
 from canonswap_torch.configs import TINY
+from canonswap_torch.models import landmark as PL
+from canonswap_torch.models import parsing as PP
+from canonswap_torch.nn.init import init_random_
 from canonswap_torch.runtime import core as C
-from canonswap_torch.runtime.weights import FROM_JAX, from_jax
-from tests.helpers.torch_parity import np_state_dict
+from canonswap_torch.runtime.weights import (
+    FROM_JAX, from_jax, landmark_from_jax, segformer_from_jax)
+from canonswap_tpu.models import landmark as JL
+from canonswap_tpu.models import parsing as JP
+from canonswap_tpu.runtime import weights as JW
+from tests.helpers.torch_parity import np_state_dict, randomized
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -74,6 +83,10 @@ def test_port_imports_without_jax():
         "from canonswap_torch.configs import TINY\n"
         "from canonswap_torch.ops.cuda import ms_deform_attn\n"
         "from canonswap_torch.models.xpose import runner, unipose\n"
+        "from canonswap_torch.models import landmark, parsing\n"
+        "from canonswap_torch.ops.cuda import probes\n"
+        "from canonswap_torch.tools import profile_r2\n"
+        "landmark.Landmark203Runner(device='cpu')\n"
         "core.CanonSwapCore(TINY, device='cpu')\n"
         "print('ok')\n"
     )
@@ -93,3 +106,59 @@ def test_core_without_a_device_needs_a_card(monkeypatch):
         C.CanonSwapCore(TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         C.CanonSwapCore(TINY, device="cuda:0")
+
+
+def test_segformer_round_trip_through_convert():
+    """port (HF-keyed) state_dict -> convert_hf_segformer -> from_jax gives
+    it back exactly."""
+    model = init_random_(PP.Segformer(PP.TINY), 0)
+    sd = model.state_dict()
+    cfg = JP.SegformerConfig(**{f: getattr(PP.TINY, f)
+                                for f in PP.TINY.__dataclass_fields__})
+    back = segformer_from_jax(JP.convert_hf_segformer(np_state_dict(model),
+                                                      cfg))
+    assert sorted(back) == sorted(sd)
+    for k, v in sd.items():
+        assert back[k].dtype == v.dtype and back[k].shape == v.shape, k
+        assert torch.equal(back[k], v), k
+
+
+def _landmark_to_jax(sd: dict) -> dict:
+    """The port's MobileLandmarkNet state_dict -> the JAX tree, with the
+    JAX package's torch-layout readers (a depthwise conv's kernel takes the
+    same transpose as any conv's)."""
+    sd = {k: v.numpy() for k, v in sd.items()}
+    params = {}
+    for key in {k.rsplit(".", 1)[0] for k in sd}:
+        node = params
+        for part in key.split(".")[:-1]:
+            node = node.setdefault(part, {})
+        name, w = key.split(".")[-1], sd.get(f"{key}.weight")
+        if key.endswith("_act"):
+            node[name] = {"alpha": sd[f"{key}.alpha"]}
+        elif w.ndim == 2:
+            node[name] = JW._dense(sd, key)
+        else:
+            node[name] = JW._conv(sd, key)
+    return {"params": params}
+
+
+def test_landmark_round_trip():
+    """JAX variables -> landmark_from_jax -> the port net, strictly -> the
+    same JAX tree back, leaf for leaf; the port net's own keys likewise."""
+    net = JL.MobileLandmarkNet(num_points=203)
+    v = randomized(jax.jit(net.init)(jax.random.PRNGKey(0),
+                                     jnp.zeros((1, 224, 224, 3))), seed=2)
+    port = PL.MobileLandmarkNet(203)
+    port.load_state_dict(landmark_from_jax(v), strict=True)
+    back = _landmark_to_jax(port.state_dict())
+    flat = jax.tree_util.tree_flatten_with_path
+    want, got = flat(v)[0], flat(back)[0]
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, a), (_, b) in zip(got, want):
+        assert np.asarray(a).dtype == np.float32, path
+        np.testing.assert_array_equal(a, b, err_msg=str(path))
+    seeded = init_random_(PL.MobileLandmarkNet(203), 0).state_dict()
+    again = landmark_from_jax(_landmark_to_jax(seeded))
+    assert sorted(again) == sorted(seeded)
+    assert all(torch.equal(again[k], seeded[k]) for k in seeded)
