@@ -27,17 +27,52 @@
 // allows (16-byte loads and stores).  Bound: bytes (1 MiB at the probe's
 // (256, 512)), which is far below a launch's cost.
 //
-// Matmul.  A shared-memory tiled f32 kernel: 64 x 32 output tiles, 16-deep
-// k steps, 128 threads each holding a 4 x 4 block of sums in registers and
-// updating it with fmaf from the tiles in shared memory.  No tensor cores:
-// the contract is f32 arithmetic (TF32 would keep 10 bits of mantissa).
-// Bound: operations, 268 MFLOP at (512, 512) @ (512, 512), 4.0 us at
-// 67 TFLOP/s f32; the 512 x 512 output gives 128 tiles, about one per SM.
+// Matmul.  f32 products and sums with FFMA, no tensor cores: the contract is
+// f32 arithmetic (TF32 would keep 10 bits of mantissa).  Bound: operations,
+// 268 MFLOP at (512, 512) @ (512, 512), 4.0 us at 67 TFLOP/s f32.  What holds
+// a tiled FFMA kernel back at this size is parallelism and latency, not
+// arithmetic: 64 x 32 output tiles over the whole of K give 128 blocks, one
+// block of four warps per SM, each waiting on its tile loads.  The design:
+//
+//   - Split K over a thread block cluster of 8 (cudaLaunchKernelEx, cluster
+//     dimension (1, 1, 8)): the 8 blocks of a cluster compute the same
+//     64 x 64 tile, each over one eighth of K (rounded up to 32-deep steps;
+//     an eighth may be empty).  512 blocks of 128 threads at the probe's
+//     shape: about 4 blocks, 15.5 warps, per SM.
+//   - Reduce through distributed shared memory in a fixed order: each block
+//     writes its partial tile to its own shared memory, cluster.sync(), rank r
+//     sums rows [8 r, 8 r + 8) of the eight partial tiles in rank order
+//     0, 1, ..., 7 (map_shared_rank), arrives at the cluster barrier, stores
+//     its rows, and waits there before it exits (no block leaves while
+//     another reads its tile).  No atomics, no second launch, no workspace:
+//     the same bits on every run.  Every block reaches both barriers,
+//     including blocks whose rows or K range are empty.
+//   - Keep loads in flight: a's and b's tiles are double-buffered in shared
+//     memory and filled with cp.async, step s + 1's copies issued before step
+//     s's FMAs; 16-byte copies where K (for a) or N (for b) divides by 4 and
+//     the pointer is 16-byte aligned, else 4-byte copies; a copy outside the
+//     matrix or the block's K range fills zeros (cp.async's source size 0).
+//   - Wide shared reads: a's tile is stored row-major (32 k and 4 of padding
+//     a row), so a 16-byte copy lands as it is read; a thread owns rows ty,
+//     ty + 8, ..., ty + 56 and 4 adjacent columns, and per 4 k reads one
+//     float4 of each of its 8 rows and one float4 of b per k: 12 LDS.128 per
+//     128 FMAs (the padding puts a warp's two rows on distinct banks).
+//
+// Per block: 128 threads (4 warps), 32 sums a thread; shared memory
+// 2 x 64 x 36 x 4 (a) + 2 x 32 x 64 x 4 (b) = 34,816 bytes, the partial tile
+// (64 x 64 x 4) reusing a's buffers after the last step.  Registers: 96
+// (95 where b takes 16-byte copies), no spills, as `-Xptxas -v` prints them
+// for sm_90a (chip_smoke.py prints the build log).  Tile, depth, thread tile and split were chosen on the H100 among
+// 4 x 4 / 8 x 4 / 4 x 8 / 8 x 8 thread tiles, 32 to 128 rows, 16 to 64 deep
+// steps and splits of 1, 2, 4 and 8 (PERF.md).
 //
 // Every entry point returns the cudaError_t of its launch (0 on success).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -76,26 +111,113 @@ __global__ void __launch_bounds__(kThreads) double_kernel(const float* __restric
   }
 }
 
-constexpr int kBM = 64;  // rows of a tile
-constexpr int kBN = 32;  // columns of a tile
-constexpr int kBK = 16;  // depth of one k step
-constexpr int kTM = 4;   // rows of a thread's block of sums
-constexpr int kTN = 4;   // columns of a thread's block of sums
-constexpr int kMmThreads = (kBM / kTM) * (kBN / kTN);  // 128
+constexpr int kBM = 64;     // rows of a tile
+constexpr int kBN = 64;     // columns of a tile
+constexpr int kBK = 32;     // depth of one k step
+constexpr int kPadK = 36;   // a's row in shared memory: 32 k + 4 of padding
+constexpr int kTM = 8;      // rows of a thread's block of sums
+constexpr int kTN = 4;      // columns of a thread's block of sums
+constexpr int kSplit = 8;   // blocks of a cluster, each one eighth of K
+constexpr int kColThreads = kBN / kTN;                  // 16
+constexpr int kRowGroups = kBM / kTM;                   // 8: a thread's row stride
+constexpr int kMmThreads = kColThreads * kRowGroups;    // 128
+constexpr int kTileA = 2 * kBM * kPadK;                 // floats, two stages
+constexpr int kTileB = 2 * kBK * kBN;
+static_assert(kBM * kBN <= kTileA, "the partial tile reuses a's buffers");
+static_assert(kBM / kSplit * (kBN / 4) == kMmThreads, "one float4 a thread in the reduction");
 
-__global__ void __launch_bounds__(kMmThreads) matmul_kernel(const float* __restrict__ a,
-                                                            const float* __restrict__ b,
-                                                            float* __restrict__ out, int M,
-                                                            int K, int N) {
-  // a's tile stored k-major so a thread's 4 rows are adjacent; one column
-  // of padding spreads the 16 k of one row's store over 16 banks
-  __shared__ float as[kBK][kBM + 1];
-  __shared__ float bs[kBK][kBN];
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 16 or 4 bytes; with ok false it reads nothing and fills zeros
+// (source size 0), src must then still be a valid address
+__device__ __forceinline__ void cp_async16(void* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float lane(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// a (M, K), b (K, N), out (M, N) row-major f32.  Grid (ceil(N / 64),
+// ceil(M / 64), 8) in clusters of (1, 1, 8); k_slice: the depth of one
+// rank's eighth of K, a multiple of kBK.
+template <bool kVecA, bool kVecB>
+__global__ void __launch_bounds__(kMmThreads)
+    matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  float* __restrict__ out, int M, int K, int N, int k_slice, int vec_out) {
+  __shared__ __align__(16) float smem[kTileA + kTileB];
+  float(*as)[kBM][kPadK] = reinterpret_cast<float(*)[kBM][kPadK]>(smem);
+  float(*bs)[kBK][kBN] = reinterpret_cast<float(*)[kBK][kBN]>(smem + kTileA);
+  float(*part)[kBN] = reinterpret_cast<float(*)[kBN]>(smem);  // after the last step
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x;
-  const int tx = tid % (kBN / kTN);  // 0..7: column block
-  const int ty = tid / (kBN / kTN);  // 0..15: row block
+  const int tx = tid % kColThreads;  // 0..15: columns 4 tx .. 4 tx + 3
+  const int ty = tid / kColThreads;  // 0..7: rows ty + 8 i
   const int row0 = blockIdx.y * kBM;
   const int col0 = blockIdx.x * kBN;
+  const int kbeg = (int)min((int64_t)K, (int64_t)rank * k_slice);
+  const int kend = kbeg + min(k_slice, K - kbeg);
+  const int steps = (kend - kbeg + kBK - 1) / kBK;
+
+  auto load = [&](int st, int k0) {
+    if (kVecA) {  // 64 rows x 8 chunks of 16 bytes, 4 a thread
+#pragma unroll
+      for (int e = tid; e < kBM * kBK / 4; e += kMmThreads) {
+        const int r = e / (kBK / 4), c = 4 * (e % (kBK / 4));
+        const int gr = row0 + r, gk = k0 + c;
+        const bool ok = gr < M && gk < kend;
+        cp_async16(&as[st][r][c], ok ? a + (int64_t)gr * K + gk : a, ok);
+      }
+    } else {  // 2048 values, 16 a thread
+#pragma unroll
+      for (int e = tid; e < kBM * kBK; e += kMmThreads) {
+        const int r = e / kBK, c = e % kBK;
+        const int gr = row0 + r, gk = k0 + c;
+        const bool ok = gr < M && gk < kend;
+        cp_async4(&as[st][r][c], ok ? a + (int64_t)gr * K + gk : a, ok);
+      }
+    }
+    if (kVecB) {  // 32 rows x 16 chunks of 16 bytes, 4 a thread
+#pragma unroll
+      for (int e = tid; e < kBK * kBN / 4; e += kMmThreads) {
+        const int r = e / (kBN / 4), c = 4 * (e % (kBN / 4));
+        const int gk = k0 + r, gc = col0 + c;
+        const bool ok = gk < kend && gc < N;
+        cp_async16(&bs[st][r][c], ok ? b + (int64_t)gk * N + gc : b, ok);
+      }
+    } else {  // 2048 values, 16 a thread
+#pragma unroll
+      for (int e = tid; e < kBK * kBN; e += kMmThreads) {
+        const int r = e / kBN, c = e % kBN;
+        const int gk = k0 + r, gc = col0 + c;
+        const bool ok = gk < kend && gc < N;
+        cp_async4(&bs[st][r][c], ok ? b + (int64_t)gk * N + gc : b, ok);
+      }
+    }
+  };
 
   float acc[kTM][kTN];
 #pragma unroll
@@ -103,48 +225,70 @@ __global__ void __launch_bounds__(kMmThreads) matmul_kernel(const float* __restr
 #pragma unroll
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    // a: 64 x 16 = 1024 values, 8 a thread; consecutive threads take
-    // consecutive k of one row (reads along a's rows)
-#pragma unroll
-    for (int e = tid; e < kBM * kBK; e += kMmThreads) {
-      const int r = e / kBK, k = e % kBK;
-      const int gr = row0 + r, gk = k0 + k;
-      as[k][r] = (gr < M && gk < K) ? a[(int64_t)gr * K + gk] : 0.0f;
-    }
-    // b: 16 x 32 = 512 values, 4 a thread, along b's rows
-#pragma unroll
-    for (int e = tid; e < kBK * kBN; e += kMmThreads) {
-      const int k = e / kBN, cc = e % kBN;
-      const int gk = k0 + k, gc = col0 + cc;
-      bs[k][cc] = (gk < K && gc < N) ? b[(int64_t)gk * N + gc] : 0.0f;
-    }
+  if (steps > 0) load(0, kbeg);
+  cp_async_commit();
+  for (int s = 0; s < steps; ++s) {
+    const int st = s & 1;
+    if (s + 1 < steps) load(st ^ 1, kbeg + (s + 1) * kBK);
+    cp_async_commit();  // possibly empty: the wait below counts groups
+    cp_async_wait_one();  // step s's copies have landed
     __syncthreads();
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float av[kTM], bv[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) av[i] = as[k][ty * kTM + i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) bv[j] = bs[k][tx * kTN + j];
+    for (int k = 0; k < kBK; k += 4) {
+      float4 av[kTM], bv[4];
 #pragma unroll
       for (int i = 0; i < kTM; ++i)
+        av[i] = *reinterpret_cast<const float4*>(&as[st][ty + kRowGroups * i][k]);
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int kk = 0; kk < 4; ++kk)
+        bv[kk] = *reinterpret_cast<const float4*>(&bs[st][k + kk][tx * kTN]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < kTM; ++i) {
+          const float x = lane(av[i], kk);
+          acc[i][0] = fmaf(x, bv[kk].x, acc[i][0]);
+          acc[i][1] = fmaf(x, bv[kk].y, acc[i][1]);
+          acc[i][2] = fmaf(x, bv[kk].z, acc[i][2]);
+          acc[i][3] = fmaf(x, bv[kk].w, acc[i][3]);
+        }
     }
-    __syncthreads();
+    __syncthreads();  // the stage is refilled by step s + 2's copies
   }
+  cp_async_wait_all();  // a's buffers take the partial tile next
+  __syncthreads();
 
+  // the partial tile, to this block's shared memory, then the cluster's sum
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int gr = row0 + ty * kTM + i;
-    if (gr >= M) continue;
+  for (int i = 0; i < kTM; ++i)
+    *reinterpret_cast<float4*>(&part[ty + kRowGroups * i][tx * kTN]) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  cluster.sync();
+  const int r = rank * (kBM / kSplit) + tid / (kBN / 4);
+  const int c = 4 * (tid % (kBN / 4));
+  float4 sum = *cluster.map_shared_rank(reinterpret_cast<float4*>(&part[r][c]), 0);
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int gc = col0 + tx * kTN + j;
-      if (gc < N) out[(int64_t)gr * N + gc] = acc[i][j];
+  for (int q = 1; q < kSplit; ++q) {
+    const float4 v = *cluster.map_shared_rank(reinterpret_cast<float4*>(&part[r][c]), q);
+    sum.x += v.x;
+    sum.y += v.y;
+    sum.z += v.z;
+    sum.w += v.w;
+  }
+  // done reading the cluster's tiles: arrive now, wait after the stores
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  const int gr = row0 + r, gc = col0 + c;
+  if (gr < M) {
+    float* o = out + (int64_t)gr * N + gc;
+    if (vec_out && gc + 3 < N) {
+      *reinterpret_cast<float4*>(o) = sum;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (gc + j < N) o[j] = lane(sum, j);
     }
   }
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
 }  // namespace
@@ -179,16 +323,36 @@ extern "C" int probes_double(const void* x, void* out, int64_t n, void* stream) 
   return (int)cudaGetLastError();
 }
 
-// a (M, K), b (K, N), out (M, N): contiguous f32 device tensors.
+// a (M, K), b (K, N), out (M, N): contiguous f32 device tensors.  Clusters
+// of kSplit blocks along the grid's z; gridDim.y (row tiles) at most 65535.
 extern "C" int probes_matmul(const void* a, const void* b, void* out, int M, int K, int N,
                              void* stream) {
   if (M < 0 || K < 0 || N < 0) return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return 0;
-  const dim3 grid((unsigned)((N + kBN - 1) / kBN), (unsigned)((M + kBM - 1) / kBM));
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  matmul_kernel<<<grid, kMmThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out), M, K,
-      N);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((N + (int64_t)kBN - 1) / kBN),
+                     (unsigned)((M + (int64_t)kBM - 1) / kBM), kSplit);
+  if (cfg.gridDim.y > 65535 || cfg.gridDim.z % kSplit != 0) return (int)cudaErrorInvalidValue;
+  cfg.blockDim = dim3(kMmThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = kSplit;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const int k_slice = (int)(((K + (int64_t)kSplit - 1) / kSplit + kBK - 1) / kBK * kBK);
+  const bool vec_a = K % 4 == 0 && (uintptr_t)a % 16 == 0;
+  const bool vec_b = N % 4 == 0 && (uintptr_t)b % 16 == 0;
+  const int vec_out = N % 4 == 0 && (uintptr_t)out % 16 == 0;
+  void (*kernel)(const float*, const float*, float*, int, int, int, int, int) =
+      vec_a ? (vec_b ? matmul_kernel<true, true> : matmul_kernel<true, false>)
+            : (vec_b ? matmul_kernel<false, true> : matmul_kernel<false, false>);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(a), static_cast<const float*>(b),
+                         static_cast<float*>(out), M, K, N, k_slice, vec_out);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

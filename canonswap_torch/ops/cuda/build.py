@@ -6,6 +6,10 @@ It is compiled for Hopper (``sm_90a``) at first use, into
 hash and the flags, so a changed source builds anew and an unchanged one
 loads at once.  Nothing here runs at import time: this module imports on a
 machine without nvcc or a GPU, where only the kernels' plain versions run.
+
+Every wrapper launches through :meth:`CudaKernel.launch_on`, on PyTorch's
+current stream of the tensors' device, passed to the C entry point as its
+last argument.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -25,6 +31,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+# the current device's index and a device's current stream as a raw handle,
+# the calls PyTorch's own generated code makes (None on a CPU-only build,
+# which has no CUDA tensor to launch on)
+_current_device = getattr(torch._C, "_cuda_getDevice", None)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def _nvcc() -> str:
@@ -43,7 +56,7 @@ def _nvcc() -> str:
 class CudaKernel:
     """One C entry point of one ``csrc/*.cu`` file, built at first use.
 
-    ``launches`` counts the launches made through :meth:`launch`; a caller
+    ``launches`` counts the launches made through :meth:`launch_on`; a caller
     that wants to show a code path went through the kernel resets it to 0
     before the path and reads it after.
     """
@@ -92,27 +105,39 @@ class CudaKernel:
         lib = self._library_path()
         if not lib.exists():
             self._finish_build(*self._start_build())
-        self._lib = ctypes.CDLL(str(lib))
+        # PyDLL: the call keeps the GIL (an entry point only enqueues work),
+        # which saves releasing and taking it again around every launch
+        self._lib = ctypes.PyDLL(str(lib))
         fn = getattr(self._lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
         self._fn = fn
         return fn
 
-    def launch(self, *args) -> None:
-        """Call the C entry point; raise if it reports a CUDA error."""
-        err = self.load()(*args)
-        if err != 0:
-            errstr = getattr(self._lib, f"{self.source.stem}_error_string",
-                             None)
-            msg = ""
-            if errstr is not None:
-                errstr.restype = ctypes.c_char_p
-                errstr.argtypes = [ctypes.c_int]
-                msg = errstr(err).decode()
-            raise RuntimeError(
-                f"{self.symbol} failed to launch: CUDA error {err} {msg}")
+    def launch_on(self, device: torch.device, *args) -> None:
+        """Call the C entry point with ``args`` and the current stream of
+        ``device`` (a CUDA device with its index, as ``tensor.device``
+        gives it) last; raise if it reports a CUDA error.  The current
+        device is switched only where it is not ``device`` already."""
+        index = device.index
+        if index == _current_device():
+            err = (self._fn or self.load())(*args, _raw_stream(index))
+        else:
+            with torch.cuda.device(index):
+                err = (self._fn or self.load())(*args, _raw_stream(index))
+        if err:
+            self._raise(err)
         self.launches += 1
+
+    def _raise(self, err: int) -> None:
+        errstr = getattr(self._lib, f"{self.source.stem}_error_string", None)
+        msg = ""
+        if errstr is not None:
+            errstr.restype = ctypes.c_char_p
+            errstr.argtypes = [ctypes.c_int]
+            msg = errstr(err).decode()
+        raise RuntimeError(
+            f"{self.symbol} failed to launch: CUDA error {err} {msg}")
 
 
 def build_all(kernels) -> None:

@@ -123,13 +123,10 @@ def ms_deform_attn_cuda(value: torch.Tensor, spatial_shapes,
     # (H, W) per level, read by the C entry point from host memory
     shapes = (ctypes.c_int * (2 * n_levels))(
         *[int(x) for hw in spatial_shapes for x in hw])
-    with torch.cuda.device(value.device):
-        stream = torch.cuda.current_stream(value.device).cuda_stream
-        MSDA.launch(
-            value.data_ptr(), sampling_locations.data_ptr(),
-            attention_weights.data_ptr(), out.data_ptr(),
-            ctypes.cast(shapes, ctypes.c_void_p),
-            n, s, m, d, lq, n_levels, p, stream)
+    MSDA.launch_on(
+        value.device, value.data_ptr(), sampling_locations.data_ptr(),
+        attention_weights.data_ptr(), out.data_ptr(),
+        ctypes.cast(shapes, ctypes.c_void_p), n, s, m, d, lq, n_levels, p)
     return out
 
 

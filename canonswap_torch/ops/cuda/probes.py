@@ -40,22 +40,30 @@ MATMUL = CudaKernel("probes.cu", "probes_matmul",
                     [_c_ptr] * 3 + [_c_int] * 3 + [_c_ptr])
 
 _INT_MAX = 2**31 - 1
+MM_TILE_M = 64  # rows of the matmul's output tile (csrc/probes.cu kBM)
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _check_cuda(name: str, tensors, dtypes) -> torch.device:
+    """Raise on what the kernels do not take, dtypes first, then devices,
+    then layout; returns the tensors' device.  One pass where all is well
+    (the launch's host cost); :func:`_refuse` says what is wrong."""
+    first = tensors[0]
+    device = first.device
+    for t, dtype in zip(tensors, dtypes):
+        if (t.dtype != dtype or not t.is_cuda or not t.is_contiguous()
+                or (t is not first and t.device != device)):
+            _refuse(name, tensors, dtypes)
+    return device
 
 
-def _check_cuda(name: str, tensors, dtypes) -> None:
-    """Dtypes, then devices, then layout."""
+def _refuse(name: str, tensors, dtypes) -> None:
     for t, dtype in zip(tensors, dtypes):
         if t.dtype != dtype:
             raise TypeError(f"{name} takes {dtype}, got {t.dtype}")
     if not all(t.is_cuda and t.device == tensors[0].device for t in tensors):
         raise ValueError(f"{name} needs its tensors on one CUDA device, got "
                          + ", ".join(str(t.device) for t in tensors))
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} needs contiguous tensors")
+    raise ValueError(f"{name} needs contiguous tensors")
 
 
 # ---- gather --------------------------------------------------------------
@@ -82,16 +90,15 @@ def dyn_gather_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def dyn_gather_cuda(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Launch the gather kernel (x f32 and idx int32 on one card)."""
     _check_gather_shapes(x, idx)
-    _check_cuda("dyn_gather", (x, idx), (torch.float32, torch.int32))
+    device = _check_cuda("dyn_gather", (x, idx), (torch.float32, torch.int32))
     b, r, c = x.shape
     if max(b, r, c) > _INT_MAX:
         raise ValueError(f"dyn_gather: shape {tuple(x.shape)} out of range")
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(x.device):
-        GATHER.launch(x.data_ptr(), idx.data_ptr(), out.data_ptr(), b, r, c,
-                      _stream(x))
+    GATHER.launch_on(device, x.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                     b, r, c)
     return out
 
 
@@ -112,12 +119,11 @@ def dbl_plain(x: torch.Tensor) -> torch.Tensor:
 
 def dbl_cuda(x: torch.Tensor) -> torch.Tensor:
     """Launch the doubling kernel (f32 on a card)."""
-    _check_cuda("dbl", (x,), (torch.float32,))
+    device = _check_cuda("dbl", (x,), (torch.float32,))
     out = torch.empty_like(x)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(x.device):
-        DOUBLE.launch(x.data_ptr(), out.data_ptr(), x.numel(), _stream(x))
+    n = out.numel()
+    if n:
+        DOUBLE.launch_on(device, x.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -145,21 +151,20 @@ def mm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def mm_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch the tiled f32 matmul kernel (f32 on one card)."""
+    """Launch the split-K f32 matmul kernel (f32 on one card)."""
     _check_mm_shapes(a, b)
-    _check_cuda("mm", (a, b), (torch.float32, torch.float32))
+    device = _check_cuda("mm", (a, b), (torch.float32, torch.float32))
     (m, k), n = a.shape, b.shape[1]
     if max(m, k, n) > _INT_MAX:
         raise ValueError(f"mm: shapes {tuple(a.shape)} @ {tuple(b.shape)} "
                          f"out of range")
-    if (m + 63) // 64 > 65535:
-        raise ValueError(f"mm: M = {m} over the kernel's grid (65535 x 64)")
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(a.device):
-        MATMUL.launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n,
-                      _stream(a))
+    if -(-m // MM_TILE_M) > 65535:
+        raise ValueError(f"mm: M = {m} over the kernel's grid "
+                         f"(65535 x {MM_TILE_M} rows)")
+    out = torch.empty((m, n), dtype=torch.float32, device=device)
+    if m and n:
+        MATMUL.launch_on(device, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                         m, k, n)
     return out
 
 

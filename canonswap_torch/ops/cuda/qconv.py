@@ -88,13 +88,11 @@ def conv_w8a8_cuda(x: torch.Tensor, weight: torch.Tensor,
     xq = torch.empty((n, plane, cp), dtype=torch.int8, device=x.device)
     wk = torch.empty((cout, taps * cp), dtype=torch.int8, device=x.device)
     scratch = torch.empty(n + 2 * cout, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        QCONV.launch(
-            x.data_ptr(), weight.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            xq.data_ptr(), wk.data_ptr(), scratch.data_ptr(),
-            _DTYPE_CODE[x.dtype], _DTYPE_CODE[weight.dtype],
-            0 if bias is None else _DTYPE_CODE[bias.dtype],
-            n, cin, cp, *spatial, cout, *ksize, stream)
+    QCONV.launch_on(
+        x.device, x.data_ptr(), weight.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        xq.data_ptr(), wk.data_ptr(), scratch.data_ptr(),
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[weight.dtype],
+        0 if bias is None else _DTYPE_CODE[bias.dtype],
+        n, cin, cp, *spatial, cout, *ksize)
     return out

@@ -81,12 +81,9 @@ def grid_sample_3d_cuda(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, c, do, ho, wo), dtype=vol.dtype, device=vol.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(vol.device):
-        stream = torch.cuda.current_stream(vol.device).cuda_stream
-        WARP3D.launch(
-            vol.data_ptr(), grid.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[vol.dtype], _DTYPE_CODE[grid.dtype],
-            b, c, d, h, w, p, stream)
+    WARP3D.launch_on(
+        vol.device, vol.data_ptr(), grid.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[vol.dtype], _DTYPE_CODE[grid.dtype], b, c, d, h, w, p)
     return out
 
 
@@ -162,12 +159,10 @@ def grid_sample_3d_quant_cuda(vol: torch.Tensor,
         return out
     step = sample_step(vol)
     q = torch.empty(vol.shape, dtype=torch.int8, device=vol.device)
-    with torch.cuda.device(vol.device):
-        stream = torch.cuda.current_stream(vol.device).cuda_stream
-        WARP3D_Q.launch(
-            vol.data_ptr(), grid.data_ptr(), out.data_ptr(), q.data_ptr(),
-            step.data_ptr(), _DTYPE_CODE[vol.dtype], _DTYPE_CODE[grid.dtype],
-            b, c, d, h, w, p, stream)
+    WARP3D_Q.launch_on(
+        vol.device, vol.data_ptr(), grid.data_ptr(), out.data_ptr(),
+        q.data_ptr(), step.data_ptr(), _DTYPE_CODE[vol.dtype],
+        _DTYPE_CODE[grid.dtype], b, c, d, h, w, p)
     return out
 
 

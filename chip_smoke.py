@@ -31,9 +31,12 @@ Phases, one JSON line each:
      outputs within 2e-4;
   9. probe kernels: the gather, doubling and matmul probes against their
      plain versions at the JAX tools' shapes (the gather also at a small
-     ragged shape with negative and out-of-range indices), timed beside
-     their plain versions, library calls and bounds; then the probe path,
-     canonswap_torch.tools.profile_r2's stages through its entry point;
+     ragged shape with negative and out-of-range indices; the matmul also
+     at ragged shapes, twice bit for bit, and on a fresh stream), timed
+     beside their plain versions, library calls and bounds, with each
+     call's host cost and its device time from a CUDA graph; then the
+     probe path, canonswap_torch.tools.profile_r2's stages through its
+     entry point;
  10. sidecars path: Landmark203Runner at full width tracking 16 frames of a
      seeded 720p clip, and FaceParser (Segformer MiT-B1, 19 labels) on
      B=8 seeded 256 crops, f32, timed on the host clock, no kernel
@@ -43,8 +46,8 @@ Phases, one JSON line each:
 Before the last line, one line lists every kernel with its launches on the
 main paths, its error against its plain version, its time, the plain
 version's, its bound and a library call's time where one computes the same
-function.  Any failure exits nonzero.  The last line is the run's one-line
-verdict.
+function (the probes also their host cost and graph-replayed time).  Any
+failure exits nonzero.  The last line is the run's one-line verdict.
 """
 
 from __future__ import annotations
@@ -141,6 +144,52 @@ def time_ms(fn, iters: int = 20, reps: int = 5) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
+    return float(np.median(times))
+
+
+def host_us(fn, rounds: int = 10, calls: int = 100) -> float:
+    """A call's host cost: the median over ``rounds`` of the host
+    microseconds per call (``time.perf_counter``) of ``calls`` calls with no
+    synchronize among them."""
+    fn()
+    per_call = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(per_call))
+
+
+def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """A call's device time with the host removed: ``iters`` calls captured
+    in one CUDA graph (warmed up on a side stream and captured on
+    torch.cuda.graph's own, as PyTorch's graph docs require), replayed
+    ``reps`` times, each replay timed with events; the median per call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
     return float(np.median(times))
 
 
@@ -1046,16 +1095,89 @@ def nan_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
         got.nan_to_num(), want.nan_to_num())
 
 
+# the matmul at ragged (M, K, N): K under the cluster's split of 8 (empty
+# eighths), K = 0 (zeros out), N = 0, M or N under one 64 x 64 tile, 16-byte
+# copies for a only or b only
+MM_RAGGED = ((70, 45, 33), (64, 1, 5), (129, 3, 257), (33, 70, 0),
+             (33, 0, 70), (100, 64, 30), (50, 30, 64))
+
+
+def on_side_stream(fn, *args):
+    """``fn(*args)`` under ``with torch.cuda.stream(s)`` on a fresh stream
+    s, after a copy of the first input made on s behind a long sleep there:
+    a launch on any other stream would read that input still filled with
+    NaN.  Returns the output after ``s.synchronize()``."""
+    first = torch.full_like(args[0], float("nan"))
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        first.copy_(args[0])
+        out = fn(first, *args[1:])
+    side.synchronize()
+    return out
+
+
+def mm_checks(gen, dev, fail) -> list:
+    """The matmul kernel at MM_RAGGED and at a 16-byte-misaligned a, against
+    the f64 plain version (exact where the output is empty or all zero);
+    two calls at the probe's shape bit-identical; a call on a fresh
+    stream; the doubling on a fresh stream."""
+    from canonswap_torch.ops.cuda import probes as PR
+
+    cases = []
+
+    def check(label, a, b, got):
+        want = PR.mm_plain(a, b)
+        torch.cuda.synchronize()
+        if want.numel() == 0 or float(want.abs().max()) == 0.0:
+            rel, ok = 0.0, torch.equal(got, want)
+        else:
+            rel, _ = max_rel_err(got, want)
+            ok = rel <= F32_TOL
+        cases.append({"case": label, "mkn": [a.shape[0], a.shape[1],
+                                             b.shape[1]], "rel": rel,
+                      "ok": ok})
+        if not ok:
+            fail(f"mm {label}: {cases[-1]}")
+
+    for m, k, n in MM_RAGGED:
+        a = torch.randn((m, k), generator=gen).to(dev)
+        b = torch.randn((k, n), generator=gen).to(dev)
+        check("ragged", a, b, PR.mm_cuda(a, b))
+    a = torch.randn(64 * 64 + 1, generator=gen).to(dev)[1:].view(64, 64)
+    b = torch.randn((64, 48), generator=gen).to(dev)
+    check("a_misaligned", a, b, PR.mm_cuda(a, b))
+    a = torch.randn((512, 512), generator=gen).to(dev)
+    b = torch.randn((512, 512), generator=gen).to(dev)
+    first, second = PR.mm_cuda(a, b), PR.mm_cuda(a, b)
+    torch.cuda.synchronize()
+    cases.append({"case": "repeat_bit_identical",
+                  "equal": torch.equal(first, second)})
+    if not cases[-1]["equal"]:
+        fail("mm: two calls at (512, 512) @ (512, 512) differ")
+    check("side_stream", a, b, on_side_stream(PR.mm_cuda, a, b))
+    x = torch.randn((256, 512), generator=gen).to(dev)
+    got = on_side_stream(PR.dbl_cuda, x)
+    cases.append({"case": "dbl_side_stream",
+                  "equal": nan_equal(got, PR.dbl_plain(x))})
+    if not cases[-1]["equal"]:
+        fail("dbl on a fresh stream differs from x * 2")
+    return cases
+
+
 def phase_probe_kernels() -> dict:
     """The three probe kernels against their plain versions: the gather at
     a small ragged shape with negative and out-of-range indices and at the
     probe's (16, 1024, 2048), bit-identical with NaNs in the same places;
     the doubling at (256, 512), bit-identical; the matmul at (512, 512) @
-    (512, 512) within 1e-5 of max |ref| against the f64 plain version.
-    Each timed at the probe's shape beside its plain version, a library
-    call and its bound.  Then the probe path: profile_r2's stages through
-    the entry point, one launch of each probe kernel and none of the
-    others, and the tool's own timed lines."""
+    (512, 512) and at ragged shapes within 1e-5 of max |ref| against the
+    f64 plain version, bit-identical over two calls, right on a fresh
+    stream.  Each timed at the probe's shape beside its plain version, a
+    library call and its bound, and split into host cost (host_us) and
+    device time (graph_ms) for kernel and library call.  Then the probe
+    path: profile_r2's stages through the entry point, one launch of each
+    probe kernel and none of the others, and the tool's own timed lines."""
     from canonswap_torch.ops.cuda import probes as PR
     from canonswap_torch.tools import profile_r2
 
@@ -1077,6 +1199,7 @@ def phase_probe_kernels() -> dict:
                   "equal": nan_equal(got, want)})
     if not (cases[-1]["equal"] and cases[-1]["nan"] > 0):
         fail(f"dyn_gather vs plain, ragged: {cases[-1]}")
+    cases += mm_checks(gen, dev, fail)
 
     stages = dict(profile_r2.stages(dev, seed=12))
     _, (xg, ig) = stages["pallas_dynamic_gather_16x"]
@@ -1105,16 +1228,27 @@ def phase_probe_kernels() -> dict:
                       "rel": rel, "max_abs_err": abs_err, "ok": ok})
         if not ok:
             fail(f"{name} vs plain at the probe's shape: {cases[-1]}")
+        # in turns: plain, library, kernel, kernel, library, plain
         p1 = time_ms(lambda: plain(*args))
+        l1 = time_ms(lambda: library(*lib_args))
         k1 = time_ms(lambda: kernel(*args))
         k2 = time_ms(lambda: kernel(*args))
+        l2 = time_ms(lambda: library(*lib_args))
         p2 = time_ms(lambda: plain(*args))
-        lib = time_ms(lambda: library(*lib_args))
         bound, bound_by = bound_ms(nbytes(*args, got), ops, F32_PEAK_TFLOPS)
         kms = float(np.median([k1, k2]))
+        graph = graph_ms(lambda: kernel(*args))
         timings[name] = {"kernel_ms": [k1, k2], "plain_ms": [p1, p2],
-                         "library_ms": lib, "bound_ms": bound,
+                         "library_ms": float(np.median([l1, l2])),
+                         "library_ms_runs": [l1, l2], "bound_ms": bound,
                          "bound_by": bound_by, "bound_share": bound / kms,
+                         "host_us": host_us(lambda: kernel(*args)),
+                         "library_host_us": host_us(
+                             lambda: library(*lib_args)),
+                         "graph_ms": graph,
+                         "library_graph_ms": graph_ms(
+                             lambda: library(*lib_args)),
+                         "graph_bound_share": bound / graph,
                          "mbytes": nbytes(*args, got) / 1e6,
                          "gflop": ops / 1e9, "max_abs_err": abs_err}
     del got, want, ig64
@@ -1130,7 +1264,8 @@ def phase_probe_kernels() -> dict:
     if launches != only(dyn_gather=1, dbl=1, mm=1):
         fail(f"probe path launched ({KERNEL_NAMES}) {launches}")
     emit("probe_kernels", cases=cases, timings=timings,
-         library_gather_index="int64", path_launches=list(launches), ok=True)
+         library_gather_index="int64", path_launches=list(launches),
+         ok=True)
     del stages, xg, ig
     profile_r2.main([])  # the tool's lines: {"stage", "ms_per_step", ...}
     return {"timings": timings, "launches": launches}
@@ -1379,6 +1514,10 @@ def main() -> int:
         "bound_ms": probes["timings"][name]["bound_ms"],
         "bound_by": probes["timings"][name]["bound_by"],
         "library_ms": probes["timings"][name]["library_ms"],
+        "host_us": probes["timings"][name]["host_us"],
+        "library_host_us": probes["timings"][name]["library_host_us"],
+        "graph_ms": probes["timings"][name]["graph_ms"],
+        "library_graph_ms": probes["timings"][name]["library_graph_ms"],
     } for name, replaces in (("dyn_gather", "tools/profile_r2b.py:192"),
                              ("dbl", "tools/profile_r2c.py:56"),
                              ("mm", "tools/profile_r2c.py:71"))]}),

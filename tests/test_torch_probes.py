@@ -263,17 +263,73 @@ def test_dbl_kernel_matches_plain(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mkn", [(512, 512, 512), (70, 45, 33), (64, 1, 5)],
-                         ids=["full", "ragged", "k1"])
+@pytest.mark.parametrize(
+    "mkn", [(512, 512, 512), (70, 45, 33), (64, 1, 5), (129, 3, 257),
+            (33, 70, 0), (33, 0, 70), (100, 64, 30), (50, 30, 64)],
+    ids=["full", "ragged", "k1", "k_under_split", "n0", "k0", "vec_a_only",
+         "vec_b_only"])
 def test_mm_kernel_matches_plain(cuda, mkn):
+    """Within 1e-5 of max |ref| against f64; exact where the output is
+    empty (no launch) or all zero (K = 0)."""
     a, b = (t(v).to(cuda) for v in mm_inputs(*mkn, seed=5))
     before = PR.MATMUL.launches
     got = PR.mm(a, b)
-    assert PR.MATMUL.launches == before + 1
+    assert PR.MATMUL.launches == before + (got.numel() > 0)
     want = PR.mm_plain(a, b)
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == torch.float32
-    assert _max_rel(got.cpu(), want.cpu()) <= MM_TOL
+    if got.numel() == 0 or mkn[1] == 0:
+        assert torch.equal(got.cpu(), want.cpu())
+    else:
+        assert _max_rel(got.cpu(), want.cpu()) <= MM_TOL
+
+
+@pytest.mark.cuda
+def test_mm_kernel_takes_a_misaligned_a(cuda):
+    """A contiguous a whose pointer is 4 bytes off 16: the 4-byte copies."""
+    a, b = mm_inputs(64, 64, 48, seed=6)
+    flat = torch.zeros(64 * 64 + 1)
+    flat[1:] = t(a).flatten()
+    av = flat.to(cuda)[1:].view(64, 64)
+    assert av.data_ptr() % 16 != 0
+    got = PR.mm(av, t(b).to(cuda))
+    assert _max_rel(got.cpu(), a.astype(np.float64) @ b) <= MM_TOL
+
+
+@pytest.mark.cuda
+def test_mm_kernel_repeats_bit_for_bit(cuda):
+    """The cluster sums its partial tiles in a fixed order: two calls give
+    the same bits."""
+    a, b = (t(v).to(cuda) for v in mm_inputs(512, 512, 512, seed=7))
+    assert torch.equal(PR.mm(a, b), PR.mm(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dbl", "mm"])
+def test_kernels_launch_on_the_current_stream(cuda, name):
+    """Under ``torch.cuda.stream(s)`` the kernel runs on s: its input is
+    copied there behind a long sleep over a NaN-filled buffer, so a launch
+    on another stream would read NaNs."""
+    if name == "dbl":
+        fn, plain, args = PR.dbl, PR.dbl_plain, (t(dbl_input((256, 512),
+                                                           seed=8)),)
+    else:
+        fn, plain, args = PR.mm, PR.mm_plain, tuple(
+            t(v) for v in mm_inputs(128, 96, 64, seed=9))
+    args = tuple(v.to(cuda) for v in args)
+    first = torch.full_like(args[0], float("nan"))
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        first.copy_(args[0])
+        got = fn(first, *args[1:])
+    side.synchronize()
+    want = plain(*args)
+    if name == "dbl":
+        assert _nan_equal(got, want)
+    else:
+        assert _max_rel(got.cpu(), want.cpu()) <= MM_TOL
 
 
 @pytest.mark.cuda

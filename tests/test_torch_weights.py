@@ -85,7 +85,8 @@ def test_port_imports_without_jax():
         "from canonswap_torch.models.xpose import runner, unipose\n"
         "from canonswap_torch.models import landmark, parsing\n"
         "from canonswap_torch.ops.cuda import probes\n"
-        "from canonswap_torch.tools import profile_r2\n"
+        "from canonswap_torch.tools import launch_cost, profile_r2\n"
+        "from canonswap_torch.ops.cuda import qconv\n"
         "landmark.Landmark203Runner(device='cpu')\n"
         "core.CanonSwapCore(TINY, device='cpu')\n"
         "print('ok')\n"
