@@ -16,19 +16,33 @@
 // row gather is slow.  Hopper gathers natively, so here it is one gather per
 // corner and nothing else: no one-hot matrix, no window.
 //
-// What bounds it on the H100: bytes.  It does 16 flops per corner read.  At
-// CANONICAL B=8 in bf16, one call reads the 34 MB volume (more where corners
-// of neighbouring points fall in different cache lines), reads the 6 MB grid
-// (12 MB in f32) and writes 34 MB.
+// What bounds it on the H100: the gather, not the bytes.  It does 16 flops
+// per corner read.  At CANONICAL B=8 in bf16, one call reads the 34 MB
+// volume, the 6 MB grid (12 MB in f32) and writes 34 MB: 0.021 ms at the
+// memory rate.  Each output point reads 8 corners x C channel planes, every
+// read a 2- or 4-byte gather, so the time goes to the load path: for a
+// smooth field (what dense motion emits) neighbouring points read
+// neighbouring addresses and the loads' issue and latency bound it; for a
+// random field every corner is its own 32-byte sector, and the L2's sector
+// rate bounds it.
 //
 // Layout: the volume stays NCDHW (B, C, D, H, W), the port's own layout, so
 // no transpose is needed around the call.  One thread takes one output point
 // (b, p): it computes the 8 corner offsets and weights once, then loops over
 // the C channel planes.  Consecutive threads take consecutive output points
-// along W, so for the smooth deformation fields that dense motion emits their
-// corner reads land on neighbouring addresses of the same plane (coalesced),
-// and their writes out[b, c, p..p+31] are contiguous for every channel.
+// along W, so for smooth fields their corner reads land on neighbouring
+// addresses of the same plane (coalesced), and their writes
+// out[b, c, p..p+31] are contiguous for every channel.  A corner outside the
+// volume is never read (a predicated load), so no NaN there can leak in.
 // Offsets of b*C*D*H*W and c*D*H*W are 64-bit.
+//
+// Launch shape, measured on the H100 at CANONICAL B=8 (chip_smoke.py's
+// smooth and random fields): blocks of 1024 points, and the channel loop
+// left rolled (8 loads in flight per thread, the block's 32 warps walking the
+// planes close together).  Blocks of 256 with the loop unrolled by 2 were
+// 8 % slower than F.grid_sample in bf16 on the smooth field; loads from
+// clamped addresses without predication were faster there but up to twice
+// as slow on the random field.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,8 +83,10 @@ __device__ __forceinline__ Axis axis_taps(float g, int size) {
   return a;
 }
 
+constexpr int THREADS = 1024;  // points per block
+
 template <typename VT, typename GT>
-__global__ void __launch_bounds__(256) warp3d_kernel(
+__global__ void __launch_bounds__(THREADS) warp3d_kernel(
     const VT* __restrict__ vol, const GT* __restrict__ grid, VT* __restrict__ out,
     int B, int C, int D, int H, int W, int P) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -101,6 +117,7 @@ __global__ void __launch_bounds__(256) warp3d_kernel(
   const int64_t plane = (int64_t)D * H * W;
   const VT* vb = vol + b * C * plane;
   VT* ob = out + b * C * (int64_t)P + p;
+#pragma unroll 1
   for (int c = 0; c < C; ++c) {
     const VT* vc = vb + c * plane;
     float acc = 0.0f;
@@ -116,10 +133,9 @@ __global__ void __launch_bounds__(256) warp3d_kernel(
 template <typename VT, typename GT>
 cudaError_t launch(const void* vol, const void* grid, void* out, int B, int C, int D,
                    int H, int W, int P, cudaStream_t stream) {
-  const int threads = 256;
   const int64_t n = (int64_t)B * P;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  warp3d_kernel<VT, GT><<<blocks, threads, 0, stream>>>(
+  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
+  warp3d_kernel<VT, GT><<<blocks, THREADS, 0, stream>>>(
       static_cast<const VT*>(vol), static_cast<const GT*>(grid), static_cast<VT*>(out),
       B, C, D, H, W, P);
   return cudaGetLastError();

@@ -10,7 +10,9 @@ One call launches the kernel's four parts on the current stream: the
 per-sample activation max, the weight's quantization into the kernel's
 layout (at every call, as the JAX package quantizes inside its jitted
 function, so a weight that was changed, cast or moved is never read stale),
-the activation's quantization and the GEMM.
+the activation's quantization and the GEMM (``wgmma``; the C entry point
+picks its tile and its A path from the shape, and a launch that fails
+raises).
 """
 
 from __future__ import annotations

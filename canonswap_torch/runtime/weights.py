@@ -1,9 +1,13 @@
-"""JAX variable trees -> the port's ``state_dict``.
+"""Weights for the port: a reference checkpoint, or JAX variable trees, ->
+the port's ``state_dict``.
 
-The inverse of ``canonswap_tpu/runtime/weights.py::convert_*``: the JAX
-package's per-network trees ``{"params", "batch_stats"}`` (numpy or jax
-arrays) become the torch keys of the reference checkpoint, which are the
-port's own.  Conventions undone here:
+:func:`load_reference_checkpoint` reads the reference's
+``combined_weights.pth`` (or the dict it holds) in torch alone.
+
+:func:`from_jax` is the inverse of the JAX package's converters
+(``canonswap_tpu/runtime/weights.py::convert_*``): its per-network trees
+``{"params", "batch_stats"}`` (numpy or jax arrays) become the torch keys of
+the reference checkpoint, which are the port's own.  Conventions undone here:
 
 - conv kernels (*k, I, O) -> (O, I, *k); depthwise (kh, kw, 1, C) ->
   (C, 1, kh, kw);
@@ -14,17 +18,76 @@ port's own.  Conventions undone here:
 - GRN gamma/beta (C,) -> (1, 1, 1, C);
 - adaptive conv weight/bias -> weight/bias_param.
 
-Spectral norm stays baked into the SPADE convs' ``weight``.  A reference
-checkpoint loads through ``convert_combined_checkpoint`` then :func:`from_jax`,
-or, where it has no ``weight_orig`` keys, straight into ``load_state_dict``.
+Spectral norm stays baked into the SPADE convs' ``weight``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any
 
 import numpy as np
 import torch
+
+
+def strip_prefixes(sd: dict) -> dict:
+    """Drop the ``module.`` (DistributedDataParallel) and ``_orig_mod.``
+    (``torch.compile``) prefixes, as the reference's
+    ``remove_ddp_dumplicate_key`` does."""
+    out = {}
+    for k, v in sd.items():
+        for pre in ("module.", "_orig_mod."):
+            if k.startswith(pre):
+                k = k[len(pre):]
+        out[k] = v
+    return out
+
+
+def bake_spectral_norm(sd: dict) -> dict:
+    """Replace each spectral-normalized ``X.weight_orig`` / ``X.weight_u`` /
+    ``X.weight_v`` by ``X.weight = weight_orig / sigma``, with
+    ``sigma = u . (W_mat v)`` and ``W_mat = weight_orig.reshape(out, -1)``:
+    what ``torch.nn.utils.spectral_norm`` computes in eval mode from the
+    stored vectors."""
+    out = dict(sd)
+    for key in [k for k in sd if k.endswith(".weight_orig")]:
+        base = key[: -len("_orig")]
+        w = out.pop(key)
+        u, v = out.pop(f"{base}_u"), out.pop(f"{base}_v")
+        sigma = torch.dot(u, torch.mv(w.reshape(w.shape[0], -1), v))
+        out[base] = w / sigma
+    return out
+
+
+def load_reference_checkpoint(checkpoint: str | os.PathLike | dict
+                              ) -> dict[str, torch.Tensor]:
+    """The reference's ``combined_weights.pth`` (a path, or the dict of six
+    torch state_dicts it holds) -> the port's ``CanonSwapCore`` state_dict,
+    keys ``{net}.{key}``, for ``load_state_dict(strict=True)``.
+
+    Per network: the ``module.``/``_orig_mod.`` prefixes are stripped,
+    spectral norm is baked (:func:`bake_spectral_norm`), and the SPADE
+    decoder's bare ``conv_img`` takes the port's ``conv_img.0`` (the conv
+    before the pixel shuffle).  Torch alone: the file is read on the CPU,
+    with ``weights_only`` (tensors and containers, no code)."""
+    if not isinstance(checkpoint, dict):
+        checkpoint = torch.load(checkpoint, map_location="cpu",
+                                weights_only=True)
+    missing = [net for net in FROM_JAX if net not in checkpoint]
+    if missing:
+        raise KeyError(f"checkpoint lacks the networks {missing}; it has "
+                       f"{sorted(checkpoint)}")
+    out = {}
+    for net in FROM_JAX:  # the six networks, CanonSwapCore's submodules
+        sd = bake_spectral_norm(strip_prefixes(checkpoint[net]))
+        if net == "spade_generator":
+            sd = {("conv_img.0" + k[len("conv_img"):]
+                   if k.startswith("conv_img.") and not
+                   k.startswith("conv_img.0.") else k): v
+                  for k, v in sd.items()}
+        for key, value in sd.items():
+            out[f"{net}.{key}"] = value
+    return out
 
 
 class _Reader:

@@ -10,7 +10,9 @@ Phases, one JSON line each:
      the main paths' shapes, f32 and bf16, and timed at B=8 CANONICAL: the
      exact warp (against its plain version), the W8A8 warp (against its plain
      version and the exact kernel) and the W8A8 conv (against cuDNN's bf16
-     conv of the same shape, and its plain f64 version);
+     conv of the same shape, and its plain f64 version; the device time of
+     each of its parts, parts_ms, from one torch.profiler pass over one call
+     per site);
   3. main path: CanonSwapCore(CANONICAL) in bf16 with seeded random weights,
      three frame batches through swap_with_motion, the warp's launches counted;
   4. main path fast: the same with fast_bundle(CANONICAL) (half-resolution
@@ -388,7 +390,8 @@ def phase_qconv_kernel() -> dict:
     path (B=2, the adaptive conv's stacked 2B = 4) and a ragged case, f32
     and bf16; then at the B=8 shapes the main path gives it (bf16), checked
     the same way and timed beside cuDNN's bf16 conv of the same shape, the
-    plain version's weight quantization and the plain f64 version."""
+    plain version's weight quantization and the plain f64 version, with the
+    device time of each of the call's parts (parts_ms)."""
     import torch.nn.functional as F
 
     from canonswap_torch.ops.cuda.qconv import conv_w8a8_cuda
@@ -429,7 +432,7 @@ def phase_qconv_kernel() -> dict:
     # at the main path's B=8 shapes: checked, then timed.  The kernel's call
     # quantizes the weight too; the plain version's weight quantization in
     # torch ops is timed beside it, for what running it as torch ops costs.
-    timings, conv_ms, cudnn_ms, wq_ms = {}, 0.0, 0.0, 0.0
+    timings, conv_ms, cudnn_ms, wq_ms, calls = {}, 0.0, 0.0, 0.0, {}
     for label, shape, cout, k, bias, sites in QCONV_SITES:
         x, w, b = operands(shape, cout, k, bias, torch.bfloat16)
         got = conv_w8a8_cuda(x, w, b)
@@ -448,6 +451,7 @@ def phase_qconv_kernel() -> dict:
         c2 = time_ms(lambda: conv(x, w, b, padding=pad))
         wq = time_ms(lambda: quantize_weight(w))
         plain = time_ms(lambda: conv_w8a8_plain(x, w, b), iters=2, reps=3)
+        calls[label] = lambda x=x, w=w, b=b: conv_w8a8_cuda(x, w, b)
         ops = 2.0 * x.numel() // shape[1] * cout * shape[1] * np.prod(k)
         bound, bound_by = bound_ms(moved, ops, INT8_PEAK_TOPS)
         kms = float(np.median([k1, k2]))
@@ -462,11 +466,49 @@ def phase_qconv_kernel() -> dict:
         conv_ms += sites * kms
         cudnn_ms += sites * float(np.median([c1, c2]))
         wq_ms += sites * wq
+    for label, parts in qconv_parts_ms(calls).items():
+        timings[label]["parts_ms"] = parts
     emit("kernel_vs_plain", kernel="qconv", cases=cases, timings_b8=timings,
          worst_max_abs_err=worst, sites_kernel_ms_per_batch=conv_ms,
          sites_cudnn_bf16_ms_per_batch=cudnn_ms,
          sites_plain_weight_quantize_ms_per_batch=wq_ms, ok=True)
     return {"timings": timings, "worst": worst}
+
+
+# the W8A8 conv's parts, in launch order, by a substring of their CUDA
+# kernel names; the last is the GEMM (the ring kernel or the halo kernel)
+QCONV_PARTS = (("memset", "Memset"), ("absmax", "absmax_kernel"),
+               ("quantize_weight", "quantize_weight_kernel"),
+               ("quantize_act", "quantize_act_kernel"), ("gemm", "qconv_"))
+
+
+def qconv_parts_ms(calls: dict) -> dict:
+    """Device ms of each part of one W8A8 conv call, by kernel name, for
+    each ``{label: fn}``: one torch.profiler pass over one call of each fn;
+    the device events, in time order, fall into calls of five parts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    names = [e.name for e in dev]
+    if len(dev) != len(QCONV_PARTS) * len(calls) or not all(
+            sub in name for name, (_, sub) in
+            zip(names, QCONV_PARTS * len(calls))):
+        raise AssertionError(f"qconv profile: device events {names}")
+    out = {}
+    for i, label in enumerate(calls):
+        out[label] = {part: dev[i * len(QCONV_PARTS) + j].time_range
+                      .elapsed_us() / 1e3
+                      for j, (part, _) in enumerate(QCONV_PARTS)}
+    return out
 
 
 def qconv_sites(cfg) -> int:

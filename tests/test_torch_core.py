@@ -85,6 +85,57 @@ def test_uint8_output_matches_jax():
     assert np.abs(got.astype(int) - out_j["out"].astype(int)).max() <= 1
 
 
+# bf16 against the JAX package: the port's bf16 run is held to this multiple
+# of the JAX package's own bf16-vs-f32 drift on the same weights and inputs.
+# Two bf16 evaluations of one function round at different places: PyTorch
+# rounds every op's result to bf16, while XLA on the CPU keeps f32 between
+# the ops it fuses (excess precision), and the two sum convolutions in
+# another order.  Through TINY's random weights each network amplifies a
+# rounding difference to the size of the whole bf16 drift, so the two bf16
+# runs differ by about one drift (0.9 to 1.2 of it at seeds 6, 8 and 12).
+# A cast in another place that changed the function, a stage left in f32 or
+# run in bf16 on one side only, or a wrong weight, sits far outside that.
+BF16_DRIFT_MULTIPLE = 2.0
+
+
+def _bf16_tree(params):
+    """The JAX session's half precision (``session.py:165-170``): every
+    floating leaf cast to bf16."""
+    return jax.tree_util.tree_map(
+        lambda x: jnp.asarray(x).astype(jnp.bfloat16)
+        if jnp.issubdtype(jnp.asarray(x).dtype, jnp.floating) else x, params)
+
+
+def test_bf16_swap_with_motion_matches_jax():
+    """``swap_with_motion`` in bf16, port vs the jitted JAX core on the same
+    weights and inputs (bf16 params and frames, as the JAX session runs
+    them): images (max and mean abs on [0, 1]) and keypoints within
+    BF16_DRIFT_MULTIPLE of the JAX package's own bf16-vs-f32 drift."""
+    core = C.CanonSwapCore(TINY, seed=6, device="cpu")
+    params = _port_params(core)
+    frames, sid = _inputs(7)
+    out32, motion32 = _jax_swap(params, frames, sid)
+    out16, motion16 = _jax_swap(_bf16_tree(params),
+                                frames.astype(jnp.bfloat16), sid)
+    out, motion = C.swap_with_motion(core.bfloat16(), t(frames).bfloat16(),
+                                     t(sid))
+    assert out["out"].dtype == torch.bfloat16
+    got = out["out"].float().numpy()
+    ref16 = np.asarray(out16["out"], np.float32)
+    drift = np.abs(ref16 - np.asarray(out32["out"], np.float32))
+    err = np.abs(got - ref16)
+    assert np.isfinite(got).all() and got.shape == ref16.shape
+    assert err.max() <= BF16_DRIFT_MULTIPLE * drift.max(), (err.max(),
+                                                            drift.max())
+    assert err.mean() <= BF16_DRIFT_MULTIPLE * drift.mean(), (err.mean(),
+                                                              drift.mean())
+    for k in ("kp", "x_t"):
+        ref = np.asarray(motion16[k], np.float32)
+        k_drift = np.abs(ref - motion32[k]).max()
+        k_err = np.abs(motion[k].numpy() - ref).max()
+        assert k_err <= BF16_DRIFT_MULTIPLE * k_drift, (k, k_err, k_drift)
+
+
 def test_bf16_core_runs_with_f32_keypoints():
     core = C.CanonSwapCore(TINY, seed=6, device="cpu").bfloat16()
     frames, sid = _inputs(7)

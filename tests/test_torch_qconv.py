@@ -49,14 +49,25 @@ def _plain_nhwc(x, w_hwio, b):
     return np.moveaxis(out.numpy(), 1, -1)
 
 
-@pytest.mark.parametrize("bias", [True, False])
-@pytest.mark.parametrize("k", [1, 3, 7])
-def test_plain_matches_conv2d_w8a8(k, bias):
+# (k, bias, Cin, Cout): every kernel size with Cin 24 (not a multiple of 32)
+# and Cout 40, then the kernel's other shape classes: Cout > 256 with Cin a
+# multiple of 128 (the wide tile, A by TMA im2col), Cout <= 32 (the narrow
+# tile) and Cin a multiple of 32 but not of 128 (A gathered by cp.async)
+PLAIN_CASES = [(k, bias, 24, 40) for k in (1, 3, 7) for bias in (True, False)]
+PLAIN_CASES += [(3, True, 128, 260), (3, False, 32, 16), (1, True, 96, 64)]
+
+
+@pytest.mark.parametrize(
+    "k,bias,cin,cout", PLAIN_CASES,
+    ids=[f"{k}-{bias}" + ("" if (cin, cout) == (24, 40) else
+                          f"-cin{cin}-cout{cout}")
+         for k, bias, cin, cout in PLAIN_CASES])
+def test_plain_matches_conv2d_w8a8(k, bias, cin, cout):
     import jax
 
     from canonswap_tpu.ops.qconv import conv2d_w8a8
 
-    x, w, b = _conv2d_case(k, bias, seed=k)
+    x, w, b = _conv2d_case(k, bias, seed=k, cin=cin, cout=cout)
     want = np.asarray(jax.jit(conv2d_w8a8)(x, w, b))
     got = _plain_nhwc(x, w, b)
     assert got.shape == want.shape
@@ -181,13 +192,28 @@ def cuda():
 
 
 # (x shape, Cout, kernel, bias): 2D and 3D, ragged H/W, Cin not a multiple
-# of 4 or 32, Cout on both tile widths
+# of 4 or 32, every tile width (Cout <= 32, <= 128, more) and both A paths
+# (TMA im2col: 2D with Cin a multiple of 128; else cp.async gathers), and
+# the kernel's boundaries: Cout one past a tile (33, 257), M not a multiple
+# of the 128-point tile, P not a multiple of it (a sample boundary inside a
+# tile), K one stage (128 bytes) exactly on both A paths, K ending inside a
+# stage (Cin 96), and the 3D chains' halo kernel
 CUDA_CASES = {
     "2d_k3_512": ((2, 512, 16, 16), 512, (3, 3), True),
     "2d_k1_nobias": ((2, 256, 12, 20), 96, (1, 1), False),
     "2d_k7_ragged": ((1, 6, 13, 11), 40, (7, 7), False),
     "3d_k3_32": ((2, 32, 4, 16, 16), 32, (3, 3, 3), True),
     "3d_ragged": ((1, 10, 3, 7, 9), 20, (3, 3, 3), True),
+    "2d_cout33": ((2, 128, 10, 10), 33, (3, 3), True),
+    "2d_cout257": ((1, 256, 9, 15), 257, (3, 3), False),
+    "2d_k1_one_stage": ((3, 128, 7, 9), 64, (1, 1), True),
+    "3d_k1_one_stage": ((2, 128, 3, 5, 7), 40, (1, 1, 1), True),
+    "2d_cin96_two_tiles": ((2, 96, 11, 13), 300, (3, 3), True),
+    # the 3D chains' halo kernel: 32 channels, W = 64, H a multiple of 4
+    "3d_halo": ((2, 32, 3, 8, 64), 32, (3, 3, 3), True),
+    "3d_halo_cin20": ((1, 20, 2, 4, 64), 20, (3, 3, 3), False),
+    "3d_halo_k133": ((1, 32, 2, 4, 64), 16, (1, 3, 3), True),
+    "2d_halo": ((2, 32, 4, 64), 24, (3, 3), True),
 }
 
 

@@ -154,6 +154,28 @@ def test_kernel_matches_plain(cuda, name, dtype, tol):
 
 
 @pytest.mark.cuda
+def test_kernel_bf16_smooth_field_across_blocks(cuda):
+    """bf16 at the kind of field dense motion emits (identity plus up to
+    0.05), the main path's 32 channels, over points that fill several
+    1024-point blocks and end inside one; within one bf16 ulp."""
+    g = torch.Generator().manual_seed(7)
+    b, c, d, h, w = 2, 32, 5, 24, 40
+    axes = [(torch.arange(n, dtype=torch.float64) + 0.5) / n * 2 - 1
+            for n in (d, h, w)]
+    zz, yy, xx = torch.meshgrid(*axes, indexing="ij")
+    ident = torch.stack([xx, yy, zz], -1)[None]
+    disp = (torch.rand((b, d, h, w, 3), generator=g) * 2 - 1) * 0.05
+    grid = (ident + disp).to(cuda, torch.bfloat16)
+    vol = torch.randn((b, c, d, h, w), generator=g).to(cuda, torch.bfloat16)
+    got = W.grid_sample_3d(vol, grid)
+    want = W.grid_sample_3d_plain(vol, grid)
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).abs().max() / want.double().abs().max()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert float(err) <= 2.0**-7
+
+
+@pytest.mark.cuda
 def test_kernel_mixed_dtypes_and_far_grids(cuda):
     """f32 volume with a bf16 grid, and grids far outside [-1, 1] (all taps
     in the zero padding)."""

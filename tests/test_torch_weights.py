@@ -3,6 +3,8 @@ the seeded init, and a port that imports without JAX."""
 
 from __future__ import annotations
 
+import ast
+import copy
 import subprocess
 import sys
 from pathlib import Path
@@ -19,7 +21,8 @@ from canonswap_torch.models import parsing as PP
 from canonswap_torch.nn.init import init_random_
 from canonswap_torch.runtime import core as C
 from canonswap_torch.runtime.weights import (
-    FROM_JAX, from_jax, landmark_from_jax, segformer_from_jax)
+    FROM_JAX, from_jax, landmark_from_jax, load_reference_checkpoint,
+    segformer_from_jax)
 from canonswap_tpu.models import landmark as JL
 from canonswap_tpu.models import parsing as JP
 from canonswap_tpu.runtime import weights as JW
@@ -51,6 +54,85 @@ def test_from_jax_loads_the_whole_core_strictly(core):
     fresh.load_state_dict(from_jax(variables), strict=True)
     for k, v in core.state_dict().items():
         assert torch.equal(fresh.state_dict()[k], v), k
+
+
+def _reference_shaped_checkpoint(core) -> dict:
+    """The port core's weights in the reference's combined_weights.pth
+    layout: SPADE resblock convs spectral-normalized (stored weight_orig,
+    u, v), a DistributedDataParallel ``module.`` prefix on one network and a
+    ``torch.compile`` ``_orig_mod.`` prefix on another, and the decoder's
+    conv_img bare."""
+    torch.manual_seed(11)
+    spade = copy.deepcopy(core.spade_generator)
+    for name in [f"G_middle_{i}" for i in range(6)] + ["up_0", "up_1"]:
+        block = getattr(spade, name)
+        for conv in ("conv_0", "conv_1", "conv_s"):
+            if hasattr(block, conv):
+                torch.nn.utils.spectral_norm(getattr(block, conv))
+    spade.train()
+    with torch.no_grad():  # one power iteration: u, v as training leaves them
+        spade(torch.randn((1, spade.fc.in_channels, 8, 8)))
+    spade.eval()
+    ckpt = {net: getattr(core, net).state_dict() for net in FROM_JAX}
+    ckpt["spade_generator"] = {
+        k.replace("conv_img.0.", "conv_img."): v
+        for k, v in spade.state_dict().items()}
+    assert any(k.endswith(".weight_orig") for k in ckpt["spade_generator"])
+    ckpt["motion_extractor"] = {f"module.{k}": v for k, v in
+                                ckpt["motion_extractor"].items()}
+    ckpt["warping_module"] = {f"_orig_mod.{k}": v for k, v in
+                              ckpt["warping_module"].items()}
+    return ckpt
+
+
+def test_reference_checkpoint_loads_without_jax(core, tmp_path):
+    """A reference-shaped combined checkpoint loads strictly through the
+    port's own loader, and each tensor equals the JAX package's converter
+    followed by from_jax within rtol 1e-6 (the bake's one division, its
+    sigma summed in another order)."""
+    ckpt = _reference_shaped_checkpoint(core)
+    path = tmp_path / "combined_weights.pth"
+    torch.save(ckpt, path)
+    sd = load_reference_checkpoint(path)
+    fresh = C.CanonSwapCore(TINY, seed=None, device="cpu")
+    fresh.load_state_dict(sd, strict=True)
+    want = from_jax(JW.convert_combined_checkpoint(
+        {net: {k: v.numpy() for k, v in part.items()}
+         for net, part in ckpt.items()}))
+    assert sorted(sd) == sorted(want)
+    for k, v in want.items():
+        torch.testing.assert_close(sd[k], v, rtol=1e-6, atol=0, msg=k)
+    # the baked weights are the spectral-normalized ones, not the originals
+    key = "spade_generator.G_middle_0.conv_0.weight"
+    assert not torch.allclose(sd[key], core.state_dict()[key])
+    # the dict itself loads the same
+    same = load_reference_checkpoint(ckpt)
+    assert all(torch.equal(same[k], sd[k]) for k in sd)
+
+
+def test_reference_checkpoint_missing_a_network_raises(core):
+    ckpt = {net: getattr(core, net).state_dict() for net in FROM_JAX}
+    del ckpt["refine"]
+    with pytest.raises(KeyError, match="refine"):
+        load_reference_checkpoint(ckpt)
+
+
+def test_port_sources_import_nothing_of_jax():
+    """A source scan of every module of the port, the checkpoint loader's
+    included: no import of jax, flax or the JAX package."""
+    banned = ("jax", "flax", "canonswap_tpu")
+    files = sorted((REPO / "canonswap_torch").rglob("*.py"))
+    assert REPO / "canonswap_torch/runtime/weights.py" in files
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in banned, (path, name)
 
 
 def test_seeded_init(core):
