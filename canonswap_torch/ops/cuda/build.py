@@ -2,10 +2,11 @@
 
 Every kernel lives in ``canonswap_torch/csrc/`` with a plain C entry point.
 It is compiled for Hopper (``sm_90a``) at first use, into
-``canonswap_torch/build/`` (git-ignored), under a name keyed by the source's
-hash and the flags, so a changed source builds anew and an unchanged one
-loads at once.  Nothing here runs at import time: this module imports on a
-machine without nvcc or a GPU, where only the kernels' plain versions run.
+``canonswap_torch/build/`` (git-ignored), under a name keyed by the hash of
+the source, the headers beside it (``csrc/*.cuh``) and the flags, so a
+changed source or header builds anew and an unchanged one loads at once.
+Nothing here runs at import time: this module imports on a machine without
+nvcc or a GPU, where only the kernels' plain versions run.
 
 Every wrapper launches through :meth:`CudaKernel.launch_on`, on PyTorch's
 current stream of the tensors' device, passed to the C entry point as its
@@ -72,8 +73,9 @@ class CudaKernel:
         self._lib = None
 
     def _library_path(self) -> Path:
+        headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
         key = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.source.stem}_{key}.so"
 

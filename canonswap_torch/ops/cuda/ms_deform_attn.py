@@ -4,7 +4,8 @@ Replaces ``canonswap_tpu/ops/pallas/ms_deform_attn.py::ms_deform_attn_pallas``
 (``_run_level`` -> ``_level_kernel``), whose function is
 ``canonswap_tpu/ops/ms_deform_attn.py::ms_deform_attn_ref``.  The kernel is
 ``canonswap_torch/csrc/ms_deform_attn.cu``: its header says what bounds it
-on the H100 and how one warp gathers all levels of one query and head.
+on the H100 and how a block gathers all levels for a run of queries of one
+head, with every corner load of a query in flight before the first sum.
 
 The JAX contract:
 
@@ -24,6 +25,7 @@ launch the kernel or raise.  Nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -67,7 +69,46 @@ def ms_deform_attn_plain(value: torch.Tensor, spatial_shapes,
     return out.view(n, m * d, lq).transpose(1, 2).contiguous()
 
 
-def _check_cuda_args(value, spatial_shapes, loc, weights) -> None:
+@functools.lru_cache(maxsize=64)
+def _level_table(shapes: tuple) -> tuple[ctypes.Array, int, int]:
+    """((H, W) per level as the C ints the entry point reads, its address,
+    the rows the levels cover); cached, so a call builds no ctypes array."""
+    table = (ctypes.c_int * (2 * len(shapes)))(*[int(x) for hw in shapes
+                                                  for x in hw])
+    return table, ctypes.addressof(table), sum(int(h) * int(w)
+                                               for h, w in shapes)
+
+
+def _levels(spatial_shapes) -> tuple[ctypes.Array, int, int]:
+    """:func:`_level_table` of the shapes as given where they hash (a tuple
+    of pairs, as the models pass them), else of the same shapes as tuples."""
+    try:
+        return _level_table(spatial_shapes)
+    except TypeError:  # a list: unhashable, so no cache key as it stands
+        return _level_table(tuple(tuple(hw) for hw in spatial_shapes))
+
+
+def _fits(value, n_shapes: int, rows: int, loc, weights) -> bool:
+    """Whether the kernel takes these arguments: one pass, the launch's host
+    cost where all is well (:func:`_refuse` says what is wrong)."""
+    if value.dim() != 4 or loc.dim() != 6 or weights.dim() != 5:
+        return False
+    n, s, m, d = value.shape
+    lshape = loc.shape
+    dev = value.get_device()
+    return (value.dtype == loc.dtype == weights.dtype == torch.float32
+            and dev >= 0 and loc.get_device() == dev
+            and weights.get_device() == dev
+            and value.is_contiguous() and loc.is_contiguous()
+            and weights.is_contiguous() and lshape[0] == n
+            and lshape[2] == m and lshape[5] == 2
+            and weights.shape == lshape[:5]
+            and n_shapes == lshape[3] and 1 <= n_shapes <= MAX_LEVELS
+            and rows == s and 1 <= d <= MAX_CHANNELS
+            and max(n * lshape[1] * m, n * s) < 2**31)
+
+
+def _refuse(value, spatial_shapes, loc, weights) -> None:
     """Raise on what the kernel does not take: shapes, then dtype, then
     devices."""
     tensors = (value, loc, weights)
@@ -105,28 +146,27 @@ def _check_cuda_args(value, spatial_shapes, loc, weights) -> None:
             "device, got " + ", ".join(str(t.device) for t in tensors))
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ms_deform_attn needs contiguous tensors")
-    if max(n * lq * m, n * s) >= 2**31:
-        raise ValueError("ms_deform_attn: a size over the kernel's int range")
+    raise ValueError("ms_deform_attn: a size over the kernel's int range")
 
 
 def ms_deform_attn_cuda(value: torch.Tensor, spatial_shapes,
                         sampling_locations: torch.Tensor,
                         attention_weights: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel (all three tensors on one card, f32)."""
-    _check_cuda_args(value, spatial_shapes, sampling_locations,
-                     attention_weights)
+    _, table, rows = _levels(spatial_shapes)
+    if not _fits(value, len(spatial_shapes), rows, sampling_locations,
+                 attention_weights):
+        _refuse(value, spatial_shapes, sampling_locations, attention_weights)
     n, s, m, d = value.shape
     _, lq, _, n_levels, p, _ = sampling_locations.shape
-    out = torch.empty((n, lq, m * d), dtype=value.dtype, device=value.device)
+    out = value.new_empty((n, lq, m * d))
     if out.numel() == 0:
         return out
     # (H, W) per level, read by the C entry point from host memory
-    shapes = (ctypes.c_int * (2 * n_levels))(
-        *[int(x) for hw in spatial_shapes for x in hw])
     MSDA.launch_on(
         value.device, value.data_ptr(), sampling_locations.data_ptr(),
-        attention_weights.data_ptr(), out.data_ptr(),
-        ctypes.cast(shapes, ctypes.c_void_p), n, s, m, d, lq, n_levels, p)
+        attention_weights.data_ptr(), out.data_ptr(), table, n, s, m, d, lq,
+        n_levels, p)
     return out
 
 

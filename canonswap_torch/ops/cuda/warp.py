@@ -4,7 +4,9 @@ Replace ``canonswap_tpu/ops/pallas/warp.py::grid_sample_3d_onehot``
 (``_kernel`` / ``_kernel_win``): the exact form (quant=False) is
 ``canonswap_torch/csrc/warp3d.cu``, the W8A8 form of the fast bundle
 (quant=True) ``canonswap_torch/csrc/warp3d_q.cu``.  Their headers say what
-bounds them on the H100 and how the layout keeps corner reads coalesced.
+bounds them on the H100 and how the layout keeps corner reads coalesced;
+the W8A8 kernel computes its per-sample steps on the card and gathers from
+an int8 copy laid out channels last.
 
 Device rule: a CPU volume goes to :func:`grid_sample_3d_plain`; a CUDA volume
 launches the kernel or raises.  Nothing falls back.
@@ -31,7 +33,7 @@ WARP3D = CudaKernel(
 
 WARP3D_Q = CudaKernel(
     "warp3d_q.cu", "warp3d_q_forward",
-    [_c_ptr] * 5 + [_c_int] * 7 + [_c_ptr],
+    [_c_ptr] * 5 + [_c_int] * 8 + [_c_ptr],
 )
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -157,12 +159,15 @@ def grid_sample_3d_quant_cuda(vol: torch.Tensor,
     out = torch.empty((b, c, do, ho, wo), dtype=vol.dtype, device=vol.device)
     if out.numel() == 0:
         return out
-    step = sample_step(vol)
-    q = torch.empty(vol.shape, dtype=torch.int8, device=vol.device)
+    # scratch: the int8 copy, channels last and zero-padded to a multiple
+    # of 16, and the per-sample maxima the kernel's steps come from
+    cp = -(-c // 16) * 16
+    q = torch.empty((b, d, h, w, cp), dtype=torch.int8, device=vol.device)
+    amax = torch.empty(b, dtype=torch.float32, device=vol.device)
     WARP3D_Q.launch_on(
         vol.device, vol.data_ptr(), grid.data_ptr(), out.data_ptr(),
-        q.data_ptr(), step.data_ptr(), _DTYPE_CODE[vol.dtype],
-        _DTYPE_CODE[grid.dtype], b, c, d, h, w, p)
+        q.data_ptr(), amax.data_ptr(), _DTYPE_CODE[vol.dtype],
+        _DTYPE_CODE[grid.dtype], b, c, cp, d, h, w, p)
     return out
 
 

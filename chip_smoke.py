@@ -9,10 +9,12 @@ Phases, one JSON line each:
   2. kernel vs plain: each CUDA kernel against its plain PyTorch version at
      the main paths' shapes, f32 and bf16, and timed at B=8 CANONICAL: the
      exact warp (against its plain version), the W8A8 warp (against its plain
-     version and the exact kernel) and the W8A8 conv (against cuDNN's bf16
-     conv of the same shape, and its plain f64 version; the device time of
-     each of its parts, parts_ms, from one torch.profiler pass over one call
-     per site);
+     version and the exact kernel, on both fields in both dtypes, with the
+     device time of each kernel of one call, parts_ms, the call's device
+     time in a CUDA graph and its host cost) and the W8A8 conv (against
+     cuDNN's bf16 conv of the same shape, and its plain f64 version; the
+     device time of each of its parts, parts_ms, from one torch.profiler
+     pass over one call per site);
   3. main path: CanonSwapCore(CANONICAL) in bf16 with seeded random weights,
      three frame batches through swap_with_motion, the warp's launches counted;
   4. main path fast: the same with fast_bundle(CANONICAL) (half-resolution
@@ -27,8 +29,10 @@ Phases, one JSON line each:
      (800, 1344), f32) on one 720p frame, three timed images, the
      deformable attention kernel's 12 launches per image counted;
   7. msda kernel: that kernel against its plain version at small ragged
-     shapes, at the full-width shapes, and on the inputs the xpose path
-     gave it, timed there beside the plain version and its bound;
+     shapes, at the full-width shapes on random locations (timed, with the
+     rate of the 128-byte corner lines), and on the inputs the xpose path
+     gave it, timed there beside the plain version and its bound, with the
+     line rate, host cost and CUDA-graph device time;
   8. xpose card vs CPU: UniPose at TINY on both, equal top-k selections,
      outputs within 2e-4;
   9. probe kernels: the gather, doubling and matmul probes against their
@@ -370,16 +374,21 @@ def phase_warp_q_kernel() -> dict:
             if not abs_err <= WARP_Q_TOL:
                 raise AssertionError(
                     f"warp3d_q vs plain B=8 {field} {dtype}: {abs_err}")
+            def call(vol=vol, grid=grid):
+                return grid_sample_3d_quant_cuda(vol, grid)
+
             p1 = time_ms(lambda: grid_sample_3d_quant_plain(vol, grid))
-            k1 = time_ms(lambda: grid_sample_3d_quant_cuda(vol, grid))
-            k2 = time_ms(lambda: grid_sample_3d_quant_cuda(vol, grid))
+            k1 = time_ms(call)
+            k2 = time_ms(call)
             p2 = time_ms(lambda: grid_sample_3d_quant_plain(vol, grid))
             exact = time_ms(lambda: grid_sample_3d_cuda(vol, grid))
             bound, bound_by = warp_bound(vol, grid, got)
             timings[f"{field}_{str(dtype).split('.')[-1]}"] = {
                 "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
                 "exact_kernel_ms": exact, "bound_ms": bound,
-                "bound_by": bound_by, "max_abs_err": abs_err}
+                "bound_by": bound_by, "max_abs_err": abs_err,
+                "parts_ms": device_parts_ms(call), "graph_ms": graph_ms(call),
+                "host_us": host_us(call)}
     emit("kernel_vs_plain", kernel="warp3d_q", cases=cases,
          timings_b8=timings, worst_max_abs_err=worst, ok=True)
     return {"timings": timings, "worst": worst}
@@ -473,6 +482,24 @@ def phase_qconv_kernel() -> dict:
          sites_cudnn_bf16_ms_per_batch=cudnn_ms,
          sites_plain_weight_quantize_ms_per_batch=wq_ms, ok=True)
     return {"timings": timings, "worst": worst}
+
+
+def device_parts_ms(fn) -> list:
+    """[kernel name, device ms] of every device event of one call of ``fn``,
+    in time order, from one torch.profiler pass."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    if not dev:
+        raise AssertionError("profile: no device event")
+    return [[e.name[:60], e.time_range.elapsed_us() / 1e3] for e in dev]
 
 
 # the W8A8 conv's parts, in launch order, by a substring of their CUDA
@@ -1020,9 +1047,11 @@ def _msda_cases(gen):
 def phase_msda_kernel(captured: dict) -> dict:
     """The deformable attention kernel against its plain version on the
     card, f32: the small cases, the full-width shapes at random locations
-    (some outside [0, 1]), and the inputs the full-width path gave it (one
-    call per query count), checked, then timed beside the plain version
-    with the bound of each call."""
+    (some outside [0, 1]; timed too, with the rate of the corner lines they
+    touch), and the inputs the full-width path gave it (one call per query
+    count), checked, then timed beside the plain version with the bound of
+    each call, the line rate, the call's host cost and its device time in a
+    CUDA graph."""
     from canonswap_torch.ops.cuda.ms_deform_attn import (
         ms_deform_attn_cuda, ms_deform_attn_plain)
 
@@ -1044,23 +1073,40 @@ def phase_msda_kernel(captured: dict) -> dict:
 
     for label, value, shapes, loc, w in _msda_cases(gen):
         check(label, value.to(dev), shapes, loc.to(dev), w.to(dev))
+    def line_gbytes(value, loc):
+        """The 128-byte lines the corner reads touch: 4 corners per sample,
+        one line per 32 channels."""
+        n, _, m, d = value.shape
+        return (4 * 128 * n * loc.shape[1] * m * loc.shape[3] * loc.shape[4]
+                * (-(-d // 32)) / 1e9)
+
+    # random locations: no neighbour reuse, the L2 floor of the gathers
     shapes = captured[22323][1]
     value = torch.randn((1, 22323, 8, 32), generator=gen).to(dev)
+    random = {}
     for label, lq, _ in MSDA_CALLS:
         loc = (torch.rand((1, lq, 8, 4, 4, 2), generator=gen) * 1.1
                - 0.05).to(dev)
         w = torch.rand((1, lq, 8, 4, 4), generator=gen).to(dev)
-        check(f"{label}_random", value, shapes, loc, w / w.sum(
-            dim=(3, 4), keepdim=True))
+        w = w / w.sum(dim=(3, 4), keepdim=True)
+        check(f"{label}_random", value, shapes, loc, w)
+        kms = time_ms(lambda: ms_deform_attn_cuda(value, shapes, loc, w))
+        random[label] = {"lq": lq, "kernel_ms": kms,
+                         "corner_line_gbytes": line_gbytes(value, loc),
+                         "line_gbytes_per_s": line_gbytes(value, loc) / kms
+                         * 1e3}
     timings, worst = {}, 0.0
     with torch.inference_mode():
         for label, lq, calls in MSDA_CALLS:
             value, shapes, loc, w = captured[lq]
             got, abs_err = check(f"{label}_path", value, shapes, loc, w)
             worst = max(worst, abs_err)
+            def call(value=value, shapes=shapes, loc=loc, w=w):
+                return ms_deform_attn_cuda(value, shapes, loc, w)
+
             p1 = time_ms(lambda: ms_deform_attn_plain(value, shapes, loc, w))
-            k1 = time_ms(lambda: ms_deform_attn_cuda(value, shapes, loc, w))
-            k2 = time_ms(lambda: ms_deform_attn_cuda(value, shapes, loc, w))
+            k1 = time_ms(call)
+            k2 = time_ms(call)
             p2 = time_ms(lambda: ms_deform_attn_plain(value, shapes, loc, w))
             n, _, m, d = value.shape
             samples = loc.shape[3] * loc.shape[4]
@@ -1075,10 +1121,12 @@ def phase_msda_kernel(captured: dict) -> dict:
                 "plain_ms": [p1, p2], "bound_ms": bound, "bound_by": bound_by,
                 "bound_share": bound / kms, "mbytes": nbytes(
                     value, loc, w, got) / 1e6, "gflop": ops / 1e9,
-                "corner_line_gbytes": 4 * 128 * n * lq * m * samples
-                * (-(-d // 32)) / 1e9, "max_abs_err": abs_err}
-    emit("msda_kernel", cases=cases, timings=timings, worst_path_max_abs_err=
-         worst, kernel_ms_per_forward=sum(
+                "corner_line_gbytes": line_gbytes(value, loc),
+                "line_gbytes_per_s": line_gbytes(value, loc) / kms * 1e3,
+                "graph_ms": graph_ms(call), "host_us": host_us(call),
+                "max_abs_err": abs_err}
+    emit("msda_kernel", cases=cases, timings=timings, random=random,
+         worst_path_max_abs_err=worst, kernel_ms_per_forward=sum(
              t["calls_per_forward"] * float(np.median(t["kernel_ms"]))
              for t in timings.values()), ok=True)
     return {"timings": timings, "worst": worst}

@@ -136,3 +136,16 @@ def test_build_looks_up_no_stream_object():
     no ``torch.cuda.Stream`` and calls no ``current_stream``."""
     src = (CUDA_OPS / "build.py").read_text()
     assert "current_stream(" not in src and "Stream(" not in src
+
+
+def test_library_name_covers_the_headers(tmp_path, monkeypatch):
+    """A source that includes a header under ``csrc/`` builds anew when the
+    header changes: the library's name hashes the headers too."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(BLD, "CSRC", tmp_path)
+    kernel = BLD.CudaKernel("k.cu", "k_forward", [])
+    first = kernel._library_path()
+    assert kernel._library_path() == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert kernel._library_path() != first

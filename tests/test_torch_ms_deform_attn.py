@@ -6,8 +6,9 @@ plain version.
 The JAX cases are tests/test_ms_deform_attn.py's shapes, plus a ragged case
 (Lq = 7, not a multiple of the Pallas block; locations outside [0, 1]; value
 rows zeroed as a padding mask zeroes them), a wide one (D = 40, more
-channels than a warp has lanes) and one with more samples per query than a
-warp has lanes (L * P = 36).  Tolerance 1e-5: the same f32 sums in
+channels than a warp has lanes), one with more samples per query than a
+warp has lanes (L * P = 36) and XPose's per-head shape (D = 32, L = P = 4)
+at small levels.  Tolerance 1e-5: the same f32 sums in
 another order.  JAX is imported inside those tests only, and the file
 imports nothing else of the test tree, so the CUDA cases also run where JAX
 is not installed:
@@ -32,7 +33,16 @@ CASES = {
     "wide": (1, 2, 40, ((4, 6), (2, 3)), 6, 2, (-0.1, 1.1), 4),
     # 36 samples per query: more than a warp's lanes, two passes
     "many_points": (1, 2, 8, ((4, 5), (3, 3), (2, 2)), 5, 12, (-0.1, 1.1), 3),
+    # XPose's per-head shape (D = 32, L = P = 4: the kernel's unrolled
+    # instantiation) at four small levels; Lq = 13 is no multiple of a
+    # query tile (8 to 64)
+    "xpose_head": (1, 2, 32, ((8, 12), (4, 6), (2, 3), (1, 2)), 13, 4,
+                   (-0.2, 1.2), 5),
 }
+# on the card also: the XPose shape at N = 2
+CUDA_CASES = {**CASES,
+              "xpose_head_n2": (2, 2, 32, ((8, 12), (4, 6), (2, 3), (1, 2)),
+                                13, 4, (-0.2, 1.2), 5)}
 
 # the full-width shapes: Swin-T levels of the (800, 1344) canvas, M=8, D=32,
 # L=P=4; Lq in the encoder and the two decoder stages
@@ -58,7 +68,7 @@ def make_inputs(n, m, d, shapes, lq, p, loc_range, zeroed, seed=0):
 
 
 def _case(name):
-    n, m, d, shapes, lq, p, rng, zeroed = CASES[name]
+    n, m, d, shapes, lq, p, rng, zeroed = CUDA_CASES[name]
     return shapes, make_inputs(n, m, d, shapes, lq, p, rng, zeroed)
 
 
@@ -142,7 +152,7 @@ def _on(cuda, *arrays):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(CUDA_CASES))
 def test_kernel_matches_plain(cuda, name):
     shapes, arrays = _case(name)
     v, lo, wt = _on(cuda, *arrays)
@@ -174,6 +184,26 @@ def test_kernel_far_locations_give_zero(cuda):
     far = torch.full_like(lo, 7.0)
     far[..., 1] = -3.0
     assert torch.count_nonzero(MS.ms_deform_attn(v, shapes, far, wt)) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ragged", "xpose_head"])
+def test_kernel_nan_location_adds_zero(cuda, name):
+    """A NaN location's sample adds exactly 0 (its corners are outside):
+    the call equals, bit for bit, the call with that sample's location kept
+    finite and its weight set to 0.  Both instantiations of the kernel."""
+    shapes, arrays = _case(name)
+    v, lo, wt = _on(cuda, *arrays)
+    nan_loc, zero_w = lo.clone(), wt.clone()
+    nan_loc[0, 3, 1, 0, 1, 0] = float("nan")  # x of one sample
+    nan_loc[0, 5, 0, 1, 2, 1] = float("nan")  # y of another
+    zero_w[0, 3, 1, 0, 1] = 0.0
+    zero_w[0, 5, 0, 1, 2] = 0.0
+    got = MS.ms_deform_attn(v, shapes, nan_loc, wt)
+    want = MS.ms_deform_attn(v, shapes, lo, zero_w)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

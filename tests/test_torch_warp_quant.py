@@ -5,8 +5,9 @@ vs the plain version.
 The JAX cases hold the plain version to ``grid_sample_3d_onehot(...,
 quant=True, interpret=True)`` at rel <= 1e-6 (expected exact: the same int8
 volume, tap weights and integer sums, the same f32 roundings), on
-tests/test_warp_pallas.py's quant shape at ranges 1.0 and 1.4 and on a
-small-motion field that takes the windowed branch (``run_win_q``).  JAX is
+tests/test_warp_pallas.py's quant shape at ranges 1.0 and 1.4, on a
+small-motion field that takes the windowed branch (``run_win_q``), at
+C = 48 and on an all-zero volume.  JAX is
 imported inside those tests only, and the file imports nothing else of the
 test tree, so the CUDA cases also run where JAX is not installed:
 
@@ -51,9 +52,26 @@ def _small_motion(seed: int = 3):
     return vol, grid.astype(np.float32)
 
 
+def _channels48(seed: int = 5):
+    """C = 48: no multiple of 32, so the kernel's second 32-channel pass
+    covers 16 channels of its channels-last copy."""
+    g = np.random.default_rng(seed)
+    vol = g.standard_normal((2, 8, 16, 16, 48), dtype=np.float32)
+    grid = g.uniform(-1.1, 1.1, (2, 8, 16, 16, 3)).astype(np.float32)
+    return vol, grid
+
+
+def _zeros(seed: int = 6):
+    """An all-zero volume: the step is 1e-12, every quantum 0."""
+    _, grid = _uniform(1.0, seed)
+    return np.zeros((2, 8, 16, 16, 32), np.float32), grid
+
+
 CASES = {"uniform_r1.0": lambda: _uniform(1.0),
          "uniform_r1.4": lambda: _uniform(1.4, seed=1),
-         "small_motion_windowed": _small_motion}
+         "small_motion_windowed": _small_motion,
+         "channels48": _channels48,
+         "zeros": _zeros}
 
 
 def _plain(vol_ndhwc, grid):
@@ -134,7 +152,43 @@ def _ragged(seed: int = 4):
     return vol, grid
 
 
-CUDA_CASES = {**CASES, "ragged_r1.1": _ragged}
+def _channels4(seed: int = 7):
+    """C = 4 (12 channels of zero padding in the int8 copy) and 105 output
+    points: B * P no multiple of the gather's block."""
+    g = np.random.default_rng(seed)
+    vol = g.standard_normal((1, 3, 5, 7, 4), dtype=np.float32)
+    grid = g.uniform(-1.1, 1.1, (1, 3, 5, 7, 3)).astype(np.float32)
+    return vol, grid
+
+
+def _ties(seed: int = 8):
+    """max |vol| = 127 makes the step exactly 1 (f32(127 * f32(1/127) +
+    1e-12) = 1), so elements at k + 0.5 lie exactly on a rounding tie of
+    vol / step (round half to even, not away from zero); every value is
+    exact in bf16 too."""
+    g = np.random.default_rng(seed)
+    vol = np.round(g.uniform(-63, 63, (2, 8, 16, 16, 32)) * 4) / 4
+    vol = vol.astype(np.float32)
+    vol[0, 0, 0, 0, 0] = 127.0
+    vol[1, 0, 0, 0, 0] = -127.0
+    grid = g.uniform(-1.0, 1.0, (2, 8, 16, 16, 3)).astype(np.float32)
+    return vol, grid
+
+
+CUDA_CASES = {**CASES, "ragged_r1.1": _ragged, "channels4": _channels4,
+              "ties": _ties}
+
+
+def test_ties_case_lies_on_rounding_ties():
+    from canonswap_torch.ops.quant import sample_step
+
+    vol, _ = _ties()
+    v = t(np.moveaxis(vol, -1, 1))
+    assert sample_step(v).tolist() == [1.0, 1.0]
+    assert sample_step(v.bfloat16()).tolist() == [1.0, 1.0]
+    assert torch.equal(v.bfloat16().float(), v)
+    frac = v - torch.floor(v)
+    assert int((frac == 0.5).sum()) > 1000
 
 
 @pytest.mark.cuda
