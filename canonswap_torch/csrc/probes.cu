@@ -13,15 +13,42 @@
 // The TPU kernels load each whole array into VMEM as one block and compute
 // there.  Here none of them holds more than a tile on chip.
 //
-// Gather.  One thread per output element over (B, R, C).  The index follows
-// JAX's semantics: an index in [-R, 0) wraps to index + R, and one outside
-// [-R, R) gives NaN (take_along_axis's fill mode).  Neighbouring threads read
-// neighbouring indices and write neighbouring outputs (coalesced); their
-// reads of x land on unrelated rows, one 32-byte sector each.  What bounds it
-// on the H100: bytes.  At the probe's shape (B = 16, R = 1024, C = 2048, f32
-// x, int32 idx) it reads 16 x 8 MiB of x and of idx and writes 16 x 8 MiB:
-// 403 MB, 0.120 ms at 3.35 TB/s.  Each batch element's 8 MiB of x fits the
-// 50 MB L2, so the scattered sector reads should mostly hit there.
+// Gather.  The index follows JAX's semantics: an index in [-R, 0) wraps to
+// index + R, and one outside [-R, R) gives NaN (take_along_axis's fill
+// mode).  What bounds it on the H100: bytes.  At the probe's shape (B = 16,
+// R = 1024, C = 2048, f32 x, int32 idx) it reads 16 x 8 MiB of x and of idx
+// and writes 16 x 8 MiB: 403 MB, 0.120 ms at 3.35 TB/s.  Two paths, chosen
+// by shape alone (ops/cuda/probes.py::gather_strip_ok):
+//
+//   - Strip, wherever R x 128 bytes and an 8-byte barrier fit the 232,448
+//     bytes of shared memory a block may use (R <= 1815), for any C.  A
+//     one-thread-per-element gather reads x where the indices point: the
+//     32 lanes of a warp read 32 unrelated rows, one 32-byte sector for
+//     each 4-byte value, 1.07 GB of sectors at the probe's shape, and it
+//     took 0.313 ms against 0.201 on a coalesced copy of the same bytes
+//     (PERF.md §6).  Here block (b, s) copies the strip x[b, :, 32 s :
+//     32 s + 32] into shared memory, [R][32] f32: each row of the strip is
+//     one whole 128-byte line, so x crosses the memory once, in full lines,
+//     whatever the indices.  The copy is one bulk copy (the TMA unit) per
+//     row, issued across the block's threads and completed on an mbarrier's
+//     byte count, where C % 4 == 0 and x is 16-byte aligned; else 4-byte
+//     cp.async.  A warp then writes one output row of the strip at a time:
+//     lane l reads strip[j][l], bank l whatever j is, so no index pattern
+//     conflicts.  Reads of idx and writes of out are 128-byte lines, marked
+//     streaming; each warp keeps 8 rows of idx in flight, the first asked
+//     for before the strip has landed.  What bounds it: bytes, in two
+//     phases per block (the strip, then idx and out), which one block per
+//     SM at R = 1024 cannot overlap: 0.146 to 0.149 ms at the probe's
+//     shape, 81 to 82 % of the bound, the same on every index pattern
+//     (PERF.md §6).
+//   - Direct, past R = 1815: one thread per output element, as above.
+//     Bound by the scattered sectors of x (and by L2 where a batch
+//     element's x fits it).
+//
+// Strip: up to 1024 threads (32 warps, fewer where R < 32), 40 registers,
+// no spills, R x 128 + 8 bytes of dynamic shared memory (131,080 at R =
+// 1024: one block per SM); direct: 256 threads, 26 registers; as
+// `-Xptxas -v` prints them for sm_90a (chip_smoke.py prints the build log).
 //
 // Doubling.  One elementwise pass, four floats a thread where the size
 // allows (16-byte loads and stores).  Bound: bytes (1 MiB at the probe's
@@ -78,6 +105,36 @@ namespace {
 
 constexpr int kThreads = 256;
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 16 or 4 bytes; with ok false it reads nothing and fills zeros
+// (source size 0), src must then still be a valid address
+__device__ __forceinline__ void cp_async16(void* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 __global__ void __launch_bounds__(kThreads) gather_kernel(const float* __restrict__ x,
                                                           const int* __restrict__ idx,
                                                           float* __restrict__ out, int R,
@@ -92,6 +149,123 @@ __global__ void __launch_bounds__(kThreads) gather_kernel(const float* __restric
   // the quiet NaN PyTorch writes for float("nan")
   out[i] = (j >= 0 && j < R) ? __ldg(x + b * plane + (int64_t)j * C + c)
                              : __int_as_float(0x7fc00000);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until phase 0 of the barrier has completed
+__device__ __forceinline__ void mbar_wait0(uint64_t* bar) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+// one bulk copy (the TMA unit, no tensor map) of `bytes` (a multiple of 16,
+// both addresses 16-byte aligned), completed on the barrier's byte count
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+constexpr int kStripCols = 32;       // a strip's columns: one 128-byte line of a row
+constexpr int kStripThreads = 1024;  // at most: 32 warps, fewer where R < 32
+constexpr int kAhead = 8;            // rows of idx a warp keeps in flight
+
+// the next kAhead rows of a warp's idx (rows r, r + warps, ...), streaming
+__device__ __forceinline__ void load_rows(int (&j)[kAhead], const int* __restrict__ ib, int r,
+                                          int warps, int R, int C, bool col) {
+#pragma unroll
+  for (int k = 0; k < kAhead; ++k) {
+    const int row = r + k * warps;
+    j[k] = (col && row < R) ? __ldcs(ib + (int64_t)row * C) : 0;
+  }
+}
+
+// The strip path.  Block (b, s) stages x[b, :, 32 s : 32 s + 32] in shared
+// memory as [R][32] f32 (the barrier after it), then a warp writes one
+// output row of the strip at a time: lane l reads strip[j][l], bank l for
+// any j.  bulk: one bulk copy per row (C % 4 == 0, x 16-byte aligned);
+// else 4-byte cp.async.  Columns past C are neither copied nor read.
+__global__ void __launch_bounds__(kStripThreads, 1)
+    gather_strip_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                        float* __restrict__ out, int R, int C, int strips, int bulk) {
+  extern __shared__ __align__(16) float strip[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(strip + (int64_t)R * kStripCols);
+  const int b = blockIdx.x / strips;
+  const int c0 = (blockIdx.x % strips) * kStripCols;
+  const int width = min(kStripCols, C - c0);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
+  const int64_t plane = (int64_t)b * R * C + c0;
+  const float* xs = x + plane;
+
+  if (bulk) {
+    if (threadIdx.x == 0) {
+      mbar_init(bar, 1);
+      mbar_arrive_expect_tx(bar, (unsigned)R * width * 4);
+    }
+    __syncthreads();
+    // a row a thread: a warp's 32 copies issue one lane after another, so
+    // one warp issuing them all would serialize the strip's load
+    for (int r = threadIdx.x; r < R; r += blockDim.x)
+      bulk_copy(strip + r * kStripCols, xs + (int64_t)r * C, width * 4, bar);
+  } else {
+    for (int e = threadIdx.x; e < R * kStripCols; e += blockDim.x) {
+      const int r = e / kStripCols, c = e % kStripCols;
+      if (c < width) cp_async4(strip + e, xs + (int64_t)r * C + c, true);
+    }
+    cp_async_commit();
+  }
+  // this lane's column of idx and out; the first rows' indices are asked
+  // for before the strip has landed
+  const bool col = lane < width;
+  const int* ib = idx + plane + lane;
+  float* ob = out + plane + lane;
+  const int step = warps * kAhead;
+  int next[kAhead];
+  load_rows(next, ib, warp, warps, R, C, col);
+  if (bulk) {
+    mbar_wait0(bar);
+  } else {
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  for (int r0 = warp; r0 < R; r0 += step) {
+    int j[kAhead];
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) j[k] = next[k];
+    load_rows(next, ib, r0 + step, warps, R, C, col);
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int row = r0 + k * warps;
+      if (col && row < R) {
+        int q = j[k];
+        if (q < 0) q += R;
+        __stcs(ob + (int64_t)row * C,
+               (q >= 0 && q < R) ? strip[q * kStripCols + lane] : __int_as_float(0x7fc00000));
+      }
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) double_kernel(const float* __restrict__ x,
@@ -125,36 +299,6 @@ constexpr int kTileA = 2 * kBM * kPadK;                 // floats, two stages
 constexpr int kTileB = 2 * kBK * kBN;
 static_assert(kBM * kBN <= kTileA, "the partial tile reuses a's buffers");
 static_assert(kBM / kSplit * (kBN / 4) == kMmThreads, "one float4 a thread in the reduction");
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of 16 or 4 bytes; with ok false it reads nothing and fills zeros
-// (source size 0), src must then still be a valid address
-__device__ __forceinline__ void cp_async16(void* dst, const float* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 __device__ __forceinline__ float lane(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -294,15 +438,32 @@ __global__ void __launch_bounds__(kMmThreads)
 }  // namespace
 
 // x (B, R, C) f32, idx (B, R, C) int32, out (B, R, C) f32: contiguous device
-// tensors.
+// tensors.  strip: 1 for the strip path (R x 128 bytes of shared memory and
+// the barrier must fit a block; ops/cuda/probes.py::gather_strip_ok decides),
+// 0 for the direct path.
 extern "C" int probes_gather(const void* x, const void* idx, void* out, int B, int R, int C,
-                             void* stream) {
+                             int strip, void* stream) {
   if (B < 0 || R < 1 || C < 1) return (int)cudaErrorInvalidValue;
   const int64_t total = (int64_t)B * R * C;
   if (total == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (strip) {
+    const int strips = (int)(((int64_t)C + kStripCols - 1) / kStripCols);
+    const int64_t blocks = (int64_t)B * strips;
+    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)R * kStripCols * sizeof(float) + sizeof(uint64_t);
+    const cudaError_t err = cudaFuncSetAttribute(
+        gather_strip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int bulk = C % 4 == 0 && (uintptr_t)x % 16 == 0;
+    gather_strip_kernel<<<(unsigned)blocks, 32 * min(R, kStripThreads / 32), smem, s>>>(
+        static_cast<const float*>(x), static_cast<const int*>(idx), static_cast<float*>(out), R,
+        C, strips, bulk);
+    return (int)cudaGetLastError();
+  }
   const int64_t blocks = (total + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  gather_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  gather_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
       static_cast<const float*>(x), static_cast<const int*>(idx), static_cast<float*>(out), R, C,
       total);
   return (int)cudaGetLastError();

@@ -14,7 +14,17 @@ each on the H100):
 
 The gather follows JAX's index semantics: an index in [-R, 0) wraps to
 index + R and one outside [-R, R) gives NaN.  ``torch.gather`` raises on
-both, so the plain version wraps and fills itself.
+both, so the plain version wraps and fills itself.  Its kernel has two
+paths, chosen by shape alone (:func:`gather_strip_ok`), both counted as
+the one ``GATHER`` launch and by path in ``GATHER_PATHS``:
+
+  strip   R <= GATHER_R_MAX (1815), any C: a block stages a 32-column strip
+          of one batch element's x in shared memory (bulk copies where C % 4
+          == 0 and x is 16-byte aligned, else 4-byte copies), so x is read
+          once in whole lines, then gathers from it.  Bound: the bytes of x,
+          idx and out, moved in two phases per block;
+  direct  past that: one thread per output element, reading x where the
+          indices point.  Bound: one 32-byte sector of x per 4-byte value.
 
 Device rule: CPU tensors take the plain versions; CUDA tensors launch the
 kernels or raise.  Nothing falls back.
@@ -33,7 +43,7 @@ _c_ptr = ctypes.c_void_p
 
 # three entry points of one source: one library, built once
 GATHER = CudaKernel("probes.cu", "probes_gather",
-                    [_c_ptr] * 3 + [_c_int] * 3 + [_c_ptr])
+                    [_c_ptr] * 3 + [_c_int] * 4 + [_c_ptr])
 DOUBLE = CudaKernel("probes.cu", "probes_double",
                     [_c_ptr] * 2 + [ctypes.c_int64, _c_ptr])
 MATMUL = CudaKernel("probes.cu", "probes_matmul",
@@ -41,6 +51,14 @@ MATMUL = CudaKernel("probes.cu", "probes_matmul",
 
 _INT_MAX = 2**31 - 1
 MM_TILE_M = 64  # rows of the matmul's output tile (csrc/probes.cu kBM)
+# the gather's strip: 32 f32 columns, one 128-byte line a row (csrc/probes.cu
+# kStripCols), staged in the shared memory one block may use on Hopper
+# (227 KB, 232,448 bytes) with its 8-byte barrier after it
+GATHER_STRIP_BYTES = 4 * 32
+GATHER_SMEM = 232_448
+GATHER_R_MAX = (GATHER_SMEM - 8) // GATHER_STRIP_BYTES  # 1815
+# launches of the gather by path, beside GATHER.launches (their sum)
+GATHER_PATHS = {"strip": 0, "direct": 0}
 
 
 def _check_cuda(name: str, tensors, dtypes) -> torch.device:
@@ -87,8 +105,17 @@ def dyn_gather_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(inside, got, torch.full_like(got, float("nan")))
 
 
+def gather_strip_ok(rows: int, cols: int) -> bool:
+    """Whether the gather of (B, rows, cols) takes the strip path: a
+    strip's ``rows`` x 128 bytes and its barrier fit the shared memory of
+    one block.  Any ``cols`` >= 1 does (ragged strips included); past
+    GATHER_R_MAX rows the direct path runs.  Shape alone decides."""
+    return cols >= 1 and 1 <= rows <= GATHER_R_MAX
+
+
 def dyn_gather_cuda(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Launch the gather kernel (x f32 and idx int32 on one card)."""
+    """Launch the gather kernel (x f32 and idx int32 on one card), on the
+    strip path where :func:`gather_strip_ok`, else the direct path."""
     _check_gather_shapes(x, idx)
     device = _check_cuda("dyn_gather", (x, idx), (torch.float32, torch.int32))
     b, r, c = x.shape
@@ -97,8 +124,10 @@ def dyn_gather_cuda(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    strip = gather_strip_ok(r, c)
     GATHER.launch_on(device, x.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                     b, r, c)
+                     b, r, c, int(strip))
+    GATHER_PATHS["strip" if strip else "direct"] += 1
     return out
 
 

@@ -36,12 +36,15 @@ Phases, one JSON line each:
   8. xpose card vs CPU: UniPose at TINY on both, equal top-k selections,
      outputs within 2e-4;
   9. probe kernels: the gather, doubling and matmul probes against their
-     plain versions at the JAX tools' shapes (the gather also at a small
-     ragged shape with negative and out-of-range indices; the matmul also
-     at ragged shapes, twice bit for bit, and on a fresh stream), timed
-     beside their plain versions, library calls and bounds, with each
-     call's host cost and its device time from a CUDA graph; then the
-     probe path, canonswap_torch.tools.profile_r2's stages through its
+     plain versions at the JAX tools' shapes (the gather also at small
+     ragged shapes with negative and out-of-range indices, at the last
+     strip shape and the first direct one, R = 1 and two unaligned views,
+     each case with the path it took; the matmul also at ragged shapes,
+     twice bit for bit, and on a fresh stream), timed beside their plain
+     versions, library calls and bounds, with each call's host cost and
+     its device time from a CUDA graph; the gather and torch.gather on
+     three index patterns, with the sectors of x the kernel reads; then
+     the probe path, canonswap_torch.tools.profile_r2's stages through its
      entry point;
  10. sidecars path: Landmark203Runner at full width tracking 16 frames of a
      seeded 720p clip, and FaceParser (Segformer MiT-B1, 19 labels) on
@@ -1256,16 +1259,147 @@ def mm_checks(gen, dev, fail) -> list:
     return cases
 
 
+def direct_sectors(idx: torch.Tensor) -> int:
+    """The 32-byte sectors of x that a one-thread-per-element gather reads:
+    for each warp (32 consecutive flat outputs), the distinct sectors of the
+    elements x[b, j, c] it reads."""
+    _, rows, cols = idx.shape
+    j = idx.long()
+    j = torch.where(j < 0, j + rows, j).clamp(0, rows - 1)
+    b = torch.arange(idx.shape[0], device=idx.device).view(-1, 1, 1)
+    c = torch.arange(cols, device=idx.device).view(1, 1, -1)
+    sector = ((b * rows + j) * cols + c).flatten() // 8
+    pad = -sector.numel() % 32
+    sector = torch.cat([sector, sector[-1:].expand(pad)]).view(-1, 32)
+    sector = sector.sort(dim=1).values
+    return int(sector.shape[0] + (sector[:, 1:] != sector[:, :-1]).sum())
+
+
+def gather_patterns(x: torch.Tensor, idx: torch.Tensor) -> dict:
+    """The gather kernel and torch.gather (int64 indices) at x's shape on
+    three index patterns: ``random`` (the probe's own), ``identity``
+    (idx[b, r, c] = r: a coalesced copy, the memory floor of the same
+    bytes) and ``row0`` (every index 0: one row, held in L2).  Each entry:
+    time_ms, graph_ms, bytes (inputs once, output once), bound_ms; the
+    kernel's entries also its path, the 32-byte sectors of x it reads (on
+    the strip path each row of a strip whole, so x once) and their rate
+    over graph_ms.  ``random_kernel_unaligned``: the kernel on the probe's
+    indices with x one float off a 16-byte line (no bulk copies)."""
+    from canonswap_torch.ops.cuda import probes as PR
+
+    batch, rows, cols = x.shape
+    patterns = {
+        "random": idx,
+        "identity": torch.arange(rows, dtype=torch.int32, device=x.device)
+        .view(1, -1, 1).expand(batch, rows, cols).contiguous(),
+        "row0": torch.zeros_like(idx),
+    }
+    table = {}
+    for pattern, ip in patterns.items():
+        ip64 = ip.long()
+        for name, fn, args in (
+                ("kernel", PR.dyn_gather_cuda, (x, ip)),
+                ("torch_gather", lambda a, i: torch.gather(a, 1, i),
+                 (x, ip64))):
+            moved = nbytes(*args, x)
+            entry = {"time_ms": time_ms(lambda: fn(*args)),
+                     "graph_ms": graph_ms(lambda: fn(*args)),
+                     "bytes": moved,
+                     "bound_ms": bound_ms(moved, 0.0, F32_PEAK_TFLOPS)[0]}
+            if name == "kernel":
+                _, path = gather_path(fn, *args)
+                # the strip path copies each row of a strip whole: x once
+                sectors = (direct_sectors(ip) if path == "direct"
+                           else batch * rows * -(-cols // 8))
+                entry.update(path=path, x_sectors=sectors,
+                             x_sector_bytes=32 * sectors,
+                             x_sector_tb_per_s=32 * sectors
+                             / (entry["graph_ms"] * 1e-3) / 1e12)
+            table[f"{pattern}_{name}"] = entry
+        del ip64
+    # the probe's indices with x one float off a 16-byte line: the strip is
+    # staged by 4-byte cp.async instead of bulk copies
+    flat = torch.empty(x.numel() + 1, device=x.device)
+    flat[1:] = x.flatten()
+    xu = flat[1:].view(x.shape)
+    _, path = gather_path(PR.dyn_gather_cuda, xu, idx)
+    table["random_kernel_unaligned"] = {
+        "time_ms": time_ms(lambda: PR.dyn_gather_cuda(xu, idx)),
+        "graph_ms": graph_ms(lambda: PR.dyn_gather_cuda(xu, idx)),
+        "path": path}
+    return table
+
+
+def gather_path(fn, *args):
+    """``fn(*args)`` and the gather path it launched ("strip" or
+    "direct"), from the wrapper's per-path counts."""
+    from canonswap_torch.ops.cuda import probes as PR
+
+    before = dict(PR.GATHER_PATHS)
+    out = fn(*args)
+    taken = [p for p, n in PR.GATHER_PATHS.items() if n != before[p]]
+    return out, (taken[0] if len(taken) == 1 else f"launched {taken}")
+
+
+def gather_checks(gen, dev, fail) -> list:
+    """The gather kernel against its plain version, bit-identical with
+    NaNs in the same places, indices in [-1.25 R, 1.25 R) (some wrapping,
+    some NaN): a ragged (3, 37, 45); R = GATHER_R_MAX (the last strip
+    shape) and R_MAX + 1 (the first direct shape) at B = 2, C = 96; ragged
+    strips narrower than one strip (C = 45 and 7); R = 1; x[1:] of a
+    (3, 37, 45) block and a (2, 37, 48) view one float off a 16-byte line
+    (neither takes the bulk copies).  Each case records its path; R_MAX + 1
+    must take the direct path and every other case the strip."""
+    from canonswap_torch.ops.cuda import probes as PR
+
+    r_max = PR.GATHER_R_MAX
+    cases = []
+
+    def inputs(shape):
+        rows = shape[1]
+        x = torch.randn(shape, generator=gen)
+        idx = torch.randint(-(5 * rows) // 4, (5 * rows) // 4, shape,
+                            generator=gen, dtype=torch.int32)
+        return x.to(dev), idx.to(dev)
+
+    def check(label, x, idx, path):
+        got, taken = gather_path(PR.dyn_gather_cuda, x, idx)
+        want = PR.dyn_gather_plain(x, idx)
+        torch.cuda.synchronize()
+        cases.append({"case": label, "shape": list(x.shape), "path": taken,
+                      "aligned": x.data_ptr() % 16 == 0,
+                      "nan": int(want.isnan().sum()),
+                      "equal": nan_equal(got, want)})
+        if not (cases[-1]["equal"] and cases[-1]["nan"] > 0
+                and taken == path):
+            fail(f"dyn_gather vs plain, {label}: {cases[-1]} "
+                 f"(wanted the {path} path)")
+
+    check("gather_ragged", *inputs((3, 37, 45)), "strip")
+    check("gather_r_max", *inputs((2, r_max, 96)), "strip")
+    check("gather_r_max_plus_1", *inputs((2, r_max + 1, 96)), "direct")
+    check("gather_c45", *inputs((2, 300, 45)), "strip")
+    check("gather_c7", *inputs((3, 50, 7)), "strip")
+    check("gather_r1", *inputs((4, 1, 100)), "strip")
+    x, idx = inputs((3, 37, 45))
+    check("gather_unaligned", x[1:], idx[1:], "strip")
+    flat = torch.randn(2 * 37 * 48 + 1, generator=gen).to(dev)
+    check("gather_unaligned_c48", flat[1:].view(2, 37, 48),
+          inputs((2, 37, 48))[1], "strip")
+    return cases
+
+
 def phase_probe_kernels() -> dict:
     """The three probe kernels against their plain versions: the gather at
-    a small ragged shape with negative and out-of-range indices and at the
-    probe's (16, 1024, 2048), bit-identical with NaNs in the same places;
+    the shapes of gather_checks and at the probe's (16, 1024, 2048), which
+    must take the strip path, bit-identical with NaNs in the same places;
     the doubling at (256, 512), bit-identical; the matmul at (512, 512) @
     (512, 512) and at ragged shapes within 1e-5 of max |ref| against the
     f64 plain version, bit-identical over two calls, right on a fresh
     stream.  Each timed at the probe's shape beside its plain version, a
     library call and its bound, and split into host cost (host_us) and
-    device time (graph_ms) for kernel and library call.  Then the probe
+    device time (graph_ms) for kernel and library call; the gather's
+    index-pattern table (gather_patterns).  Then the probe
     path: profile_r2's stages through the entry point, one launch of each
     probe kernel and none of the others, and the tool's own timed lines."""
     from canonswap_torch.ops.cuda import probes as PR
@@ -1279,16 +1413,7 @@ def phase_probe_kernels() -> dict:
         emit("probe_kernels", cases=cases, ok=False)
         raise AssertionError(msg)
 
-    # ragged: indices in [-1.25 R, 1.25 R), some wrapping, some NaN
-    x = torch.randn((3, 37, 45), generator=gen).to(dev)
-    idx = torch.randint(-46, 46, (3, 37, 45), generator=gen,
-                        dtype=torch.int32).to(dev)
-    got, want = PR.dyn_gather_cuda(x, idx), PR.dyn_gather_plain(x, idx)
-    torch.cuda.synchronize()
-    cases.append({"case": "gather_ragged", "nan": int(want.isnan().sum()),
-                  "equal": nan_equal(got, want)})
-    if not (cases[-1]["equal"] and cases[-1]["nan"] > 0):
-        fail(f"dyn_gather vs plain, ragged: {cases[-1]}")
+    cases += gather_checks(gen, dev, fail)
     cases += mm_checks(gen, dev, fail)
 
     stages = dict(profile_r2.stages(dev, seed=12))
@@ -1304,8 +1429,11 @@ def phase_probe_kernels() -> dict:
              lambda x: torch.mul(x, 2.0), (xd,), (xd,), float(xd.numel())),
             ("mm", PR.mm_cuda, PR.mm_plain, torch.matmul, (a, b), (a, b),
              2.0 * a.shape[0] * a.shape[1] * b.shape[1])):
-        got, want = kernel(*args), plain(*args)
+        got, path = gather_path(kernel, *args)
+        want = plain(*args)
         torch.cuda.synchronize()
+        if name == "dyn_gather" and path != "strip":
+            fail(f"dyn_gather at the probe's shape took the {path} path")
         if name == "mm":
             rel, abs_err = max_rel_err(got, want)
             ok = rel <= F32_TOL
@@ -1341,7 +1469,9 @@ def phase_probe_kernels() -> dict:
                          "graph_bound_share": bound / graph,
                          "mbytes": nbytes(*args, got) / 1e6,
                          "gflop": ops / 1e9, "max_abs_err": abs_err}
+    timings["dyn_gather"]["path"] = "strip"
     del got, want, ig64
+    patterns = gather_patterns(xg, ig)
     # the probe path: each stage once through the entry point
     reset_launch_counts()
     for name, (fn, args) in stages.items():
@@ -1354,8 +1484,8 @@ def phase_probe_kernels() -> dict:
     if launches != only(dyn_gather=1, dbl=1, mm=1):
         fail(f"probe path launched ({KERNEL_NAMES}) {launches}")
     emit("probe_kernels", cases=cases, timings=timings,
-         library_gather_index="int64", path_launches=list(launches),
-         ok=True)
+         gather_patterns=patterns, library_gather_index="int64",
+         path_launches=list(launches), ok=True)
     del stages, xg, ig
     profile_r2.main([])  # the tool's lines: {"stage", "ms_per_step", ...}
     return {"timings": timings, "launches": launches}
@@ -1604,6 +1734,9 @@ def main() -> int:
         "bound_ms": probes["timings"][name]["bound_ms"],
         "bound_by": probes["timings"][name]["bound_by"],
         "library_ms": probes["timings"][name]["library_ms"],
+        **({"path": probes["timings"][name]["path"],
+            "bound_share": probes["timings"][name]["bound_share"]}
+           if name == "dyn_gather" else {}),
         "host_us": probes["timings"][name]["host_us"],
         "library_host_us": probes["timings"][name]["library_host_us"],
         "graph_ms": probes["timings"][name]["graph_ms"],

@@ -101,6 +101,21 @@ def test_gather_plain_matches_pallas_interpret():
     np.testing.assert_array_equal(got, want)
 
 
+def test_gather_plain_matches_pallas_interpret_past_the_strip():
+    """At R above the strip's limit (where the kernel takes its direct
+    path) the plain version still equals the Pallas probe."""
+    import jax
+    import jax.numpy as jnp
+
+    dyn_gather = pallas_probe("profile_r2b.py", "dg_kernel", "dyn_gather")
+    x, idx = gather_inputs((1, 1900, 40), seed=10)
+    assert not PR.gather_strip_ok(1900, 40)
+    want = np.asarray(jax.vmap(dyn_gather)(jnp.asarray(x), jnp.asarray(idx)))
+    got = PR.dyn_gather_plain(t(x), t(idx)).numpy()
+    assert np.isnan(want).any()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_dbl_plain_matches_pallas_interpret():
     import jax.numpy as jnp
 
@@ -130,12 +145,14 @@ def test_cpu_tensors_take_the_plain_versions():
     x, idx = gather_inputs((1, 5, 7))
     a, b = mm_inputs(9, 5, 3)
     before = [k.launches for k in (PR.GATHER, PR.DOUBLE, PR.MATMUL)]
+    paths = dict(PR.GATHER_PATHS)
     for got, want in (
             (PR.dyn_gather(t(x), t(idx)), PR.dyn_gather_plain(t(x), t(idx))),
             (PR.dbl(t(x)), PR.dbl_plain(t(x))),
             (PR.mm(t(a), t(b)), PR.mm_plain(t(a), t(b)))):
         torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
     assert [k.launches for k in (PR.GATHER, PR.DOUBLE, PR.MATMUL)] == before
+    assert PR.GATHER_PATHS == paths
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -193,6 +210,37 @@ def test_build_all_starts_one_nvcc_per_shared_source(monkeypatch):
     assert all(k.build_seconds == 1.5 for k in kernels)
 
 
+# ---- the gather's shape rule -------------------------------------------------
+
+
+def test_gather_strip_limit_is_the_shared_memory_of_a_block():
+    """R_MAX rows of 128 bytes and the 8-byte barrier fit the 232,448
+    bytes a Hopper block may use; one row more does not."""
+    r_max = PR.GATHER_R_MAX
+    assert r_max == 1815
+    assert r_max * 128 + 8 <= 232_448 < (r_max + 1) * 128 + 8
+
+
+@pytest.mark.parametrize("rows, cols, strip", [
+    (1024, 2048, True),            # the probe's shape
+    (PR.GATHER_R_MAX, 96, True),   # the last strip shape
+    (PR.GATHER_R_MAX + 1, 96, False),  # the first direct shape
+    (1900, 40, False),
+    (1, 100, True),
+    (37, 1, True),                 # one column: a strip of width 1
+    (37, 7, True),                 # narrower than one strip
+    (37, 45, True),                # one whole strip and a ragged one
+    (37, 2**31 - 1, True),         # the widest C the checks admit
+    (0, 8, False),                 # no rows: nothing to stage
+    (8, 0, False),
+], ids=["probe", "r_max", "r_max_plus_1", "r1900", "r1", "c1", "c7", "c45",
+        "c_int_max", "r0", "c0"])
+def test_gather_strip_rule(rows, cols, strip):
+    """The strip path where the strip fits, whatever C; the direct path
+    past R_MAX rows."""
+    assert PR.gather_strip_ok(rows, cols) is strip
+
+
 # ---- the probe entry point ---------------------------------------------------
 
 
@@ -248,6 +296,44 @@ def test_gather_kernel_matches_plain(cuda, shape):
     assert PR.GATHER.launches == before + 1
     want = PR.dyn_gather_plain(x, idx)
     torch.cuda.synchronize()
+    assert bool(got.isnan().any()) and _nan_equal(got, want)
+
+
+def _gather_path(x: torch.Tensor, idx: torch.Tensor):
+    before = dict(PR.GATHER_PATHS)
+    out = PR.dyn_gather(x, idx)
+    return out, [p for p, n in PR.GATHER_PATHS.items() if n != before[p]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, path, unaligned", [
+    ((2, PR.GATHER_R_MAX, 96), "strip", False),
+    ((2, PR.GATHER_R_MAX + 1, 96), "direct", False),
+    ((2, 300, 45), "strip", False),
+    ((3, 50, 7), "strip", False),
+    ((4, 1, 100), "strip", False),
+    ((3, 37, 45), "strip", True),
+    ((2, 37, 48), "strip", True),
+], ids=["r_max", "r_max_plus_1", "c45", "c7", "r1", "unaligned",
+        "unaligned_c48"])
+def test_gather_kernel_paths(cuda, shape, path, unaligned):
+    """Each shape takes the path the rule gives it and equals the plain
+    version bit for bit, NaNs in the same places.  unaligned: x lies one
+    float off a 16-byte line (x[1:] of a larger block), so the strip is
+    staged without the bulk copies."""
+    x, idx = (t(v) for v in gather_inputs(shape, seed=11))
+    if unaligned:
+        flat = torch.zeros(x.numel() + 1)
+        flat[1:] = x.flatten()
+        x = flat.to(cuda)[1:].view(shape)
+        assert x.data_ptr() % 16 != 0
+    else:
+        x = x.to(cuda)
+    idx = idx.to(cuda)
+    got, taken = _gather_path(x, idx)
+    want = PR.dyn_gather_plain(x, idx)
+    torch.cuda.synchronize()
+    assert taken == [path]
     assert bool(got.isnan().any()) and _nan_equal(got, want)
 
 
