@@ -13,6 +13,10 @@ counterpart here, nor have the options the fast bundle leaves off
 ``spectral_norm``) or that select another network than the shipped
 checkpoint's: the port always estimates the occlusion map and always ends
 the decoder in the 2x pixel-shuffle head (``upscale=2``).
+
+:class:`CropConfig` and :func:`partial_fields` are the port's copy of the
+Cropper's settings in ``canonswap_tpu/configs/pipeline_config.py``, field
+for field.
 """
 
 from __future__ import annotations
@@ -129,3 +133,29 @@ def fast_bundle(cfg: CanonSwapModelConfig) -> CanonSwapModelConfig:
         swap=rep(cfg.swap, int8_conv=True),
         spade=rep(cfg.spade, int8_conv=True),
     )
+
+
+@dataclasses.dataclass
+class CropConfig:
+    """Crop geometry (the reference's crop_config.py:13-33)."""
+
+    det_thresh: float = 0.1
+    dsize: int = 512
+    scale: float = 2.3
+    vx_ratio: float = 0.0
+    vy_ratio: float = -0.125
+    max_face_num: int = 0
+    flag_do_rot: bool = True
+    scale_crop_driving_video: float = 2.2
+    vx_ratio_crop_driving_video: float = 0.0
+    vy_ratio_crop_driving_video: float = -0.1
+    direction: str = "large-small"
+    # animal-face landmarking through models/xpose (crop_config.py:27)
+    animal_face_type: str = "animal_face_9"  # or "animal_face_68"
+
+
+def partial_fields(target_class, kwargs: dict):
+    """The entries of ``kwargs`` that name fields of the dataclass
+    ``target_class``, as an instance of it (inference_canswap.py:14-15)."""
+    names = {f.name for f in dataclasses.fields(target_class)}
+    return target_class(**{k: v for k, v in kwargs.items() if k in names})

@@ -23,7 +23,7 @@ import torch
 from canonswap_torch.models.xpose.unipose import UniPose, UniPoseConfig
 from canonswap_torch.nn.init import init_random_
 from canonswap_torch.ops.resize import resize_like_cv2
-from canonswap_torch.runtime.device import resolve_device
+from canonswap_torch.runtime.device import on_device, resolve_device
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -91,16 +91,16 @@ class XPoseRunner:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.eval().requires_grad_(False).to(self.device)
 
-    def preprocess(self, img_rgb: np.ndarray):
-        """uint8 RGB (H, W, 3) -> (canvas (1, ch, cw, 3), mask (1, ch, cw),
-        (nh, nw)) on the runner's device, short side 800 capped by the
-        canvas (animal_landmark_runner.py:52-60)."""
+    def preprocess(self, img_rgb):
+        """uint8 RGB (H, W, 3), numpy or tensor -> (canvas (1, ch, cw, 3),
+        mask (1, ch, cw), (nh, nw)) on the runner's device, short side 800
+        capped by the canvas (animal_landmark_runner.py:52-60)."""
         h0, w0 = img_rgb.shape[:2]
         ch, cw = self.canvas
         scale = min(800.0 / min(h0, w0), 1333.0 / max(h0, w0))
         scale = min(scale, ch / h0, cw / w0)
         nh, nw = int(round(h0 * scale)), int(round(w0 * scale))
-        img = torch.from_numpy(np.ascontiguousarray(img_rgb)).to(self.device)
+        img = on_device(img_rgb, self.device)
         resized = resize_like_cv2(img, (nh, nw)).float()
         mean = torch.tensor(IMAGENET_MEAN, device=self.device)
         std = torch.tensor(IMAGENET_STD, device=self.device)

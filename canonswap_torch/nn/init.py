@@ -23,7 +23,8 @@ from torch import nn
 
 from canonswap_torch.nn.convnext import GRN
 
-_NORMS = (nn.BatchNorm2d, nn.BatchNorm3d, nn.GroupNorm, nn.LayerNorm)
+_NORMS = (nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d, nn.GroupNorm,
+          nn.LayerNorm)
 
 
 def _value(module: nn.Module, name: str, shape, gen) -> torch.Tensor | None:

@@ -8,6 +8,7 @@ here, before any weight is built, instead of the path running on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -19,3 +20,12 @@ def resolve_device(device: str | torch.device) -> torch.device:
             "(torch.cuda.is_available() is false); pass device='cpu' to run "
             "on the CPU")
     return dev
+
+
+def on_device(img, device: torch.device) -> torch.Tensor:
+    """An image (numpy array or tensor) as a tensor on ``device``: uploaded
+    once, or used as it is where it is already there, so a caller that
+    uploads a frame once can hand it to every runner."""
+    if isinstance(img, torch.Tensor):
+        return img.to(device)
+    return torch.from_numpy(np.ascontiguousarray(img)).to(device)

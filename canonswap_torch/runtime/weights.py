@@ -16,7 +16,12 @@ the reference checkpoint, which are the port's own.  Conventions undone here:
   running_mean/running_var (num_batches_tracked 0); LayerNorm and GroupNorm
   scale/bias -> weight/bias;
 - GRN gamma/beta (C,) -> (1, 1, 1, C);
-- adaptive conv weight/bias -> weight/bias_param.
+- adaptive conv weight/bias -> weight/bias_param;
+- single-slope PReLU alphas (ArcFace) () -> (1,) weights.
+
+Besides the core's six networks: the sidecars' and the face stack's nets
+(``landmark_from_jax``, ``landmark_net_from_jax``, ``segformer_from_jax``,
+``scrfd_from_jax``, ``arcface_from_jax``).
 
 Spectral norm stays baked into the SPADE convs' ``weight``.
 """
@@ -303,6 +308,94 @@ def landmark_from_jax(variables: dict) -> dict[str, torch.Tensor]:
     r.dense("fc0", "fc0")
     r.array("fc0_act/alpha", "fc0_act.alpha")
     r.dense("head", "head")
+    return r.sd
+
+
+def landmark_net_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """The residual ``LandmarkNet``'s JAX variables (flax's automatic names
+    inside a block: Conv_0, GroupNorm_0, Conv_1, GroupNorm_1) -> the port's
+    ``models/landmark.py::LandmarkNet`` state_dict."""
+    r = _Reader(variables)
+    r.conv("Conv_0", "stem")
+    for i in range(r.count("block{}")):
+        for name in (f"block{i}", f"block{i}b"):
+            for j in (0, 1):
+                r.conv(f"{name}/Conv_{j}", f"{name}.conv{j}")
+                r.affine(f"{name}/GroupNorm_{j}", f"{name}.norm{j}")
+            if r.has(f"{name}/short"):
+                r.conv(f"{name}/short", f"{name}.short")
+    r.dense("fc0", "fc0")
+    r.dense("head", "head")
+    return r.sd
+
+
+def scrfd_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """SCRFD's JAX variables (params and batch_stats) -> the port's
+    ``models/scrfd.py::SCRFD`` state_dict (the names are the JAX tree's)."""
+    r = _Reader(variables)
+
+    def conv_bn(path, key):
+        r.conv(f"{path}/conv", f"{key}.conv")
+        r.bn(f"{path}/bn", f"{key}.bn")
+
+    for i in range(3):
+        conv_bn(f"backbone/stem{i}", f"backbone.stem{i}")
+    for i in range(r.count("backbone/layer{}_0")):
+        for j in range(r.count(f"backbone/layer{i}_{{}}")):
+            p, k = f"backbone/layer{i}_{j}", f"backbone.layer{i}_{j}"
+            conv_bn(f"{p}/conv1", f"{k}.conv1")
+            r.conv(f"{p}/conv2", f"{k}.conv2")
+            r.bn(f"{p}/bn2", f"{k}.bn2")
+            if r.has(f"{p}/downsample"):
+                r.conv(f"{p}/downsample", f"{k}.downsample")
+                r.bn(f"{p}/downsample_bn", f"{k}.downsample_bn")
+    levels = r.count("neck/lateral{}")
+    for i in range(levels):
+        r.conv(f"neck/lateral{i}", f"neck.lateral{i}")
+        r.conv(f"neck/fpn_conv{i}", f"neck.fpn_conv{i}")
+    for i in range(1, levels):
+        r.conv(f"neck/down_conv{i}", f"neck.down_conv{i}")
+        r.conv(f"neck/pafpn_conv{i}", f"neck.pafpn_conv{i}")
+    for i in range(r.count("head/conv{}")):
+        r.conv(f"head/conv{i}", f"head.conv{i}")
+        r.bn(f"head/bn{i}", f"head.bn{i}")
+    for name in ("cls", "reg", "kps"):
+        r.conv(f"head/{name}", f"head.{name}")
+    return r.sd
+
+
+def arcface_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """ArcFace's JAX variables -> the reference's ArcFace state_dict keys,
+    the port's ``models/arcface.py::ArcFaceResNet`` (the inverse of
+    ``canonswap_tpu/runtime/weights.py::convert_arcface``)."""
+    r = _Reader(variables)
+
+    def prelu(path, key):
+        r._put(f"{key}.weight",
+               np.asarray(r._node(r.params, path)["alpha"]).reshape(1))
+
+    r.conv("conv1", "conv1")
+    r.bn("bn1", "bn1")
+    prelu("prelu", "prelu")
+    for li in range(1, 5):
+        for bi in range(r.count(f"layer{li}_{{}}")):
+            p, k = f"layer{li}_{bi}", f"layer{li}.{bi}"
+            r.bn(f"{p}/bn0", f"{k}.bn0")
+            r.conv(f"{p}/conv1", f"{k}.conv1")
+            r.bn(f"{p}/bn1", f"{k}.bn1")
+            prelu(f"{p}/prelu", f"{k}.prelu")
+            r.conv(f"{p}/conv2", f"{k}.conv2")
+            r.bn(f"{p}/bn2", f"{k}.bn2")
+            if r.has(f"{p}/se"):
+                r.dense(f"{p}/se/fc0", f"{k}.se.fc.0")
+                prelu(f"{p}/se/prelu", f"{k}.se.fc.1")
+                r.dense(f"{p}/se/fc1", f"{k}.se.fc.2")
+            if r.has(f"{p}/ds_conv"):
+                r.conv(f"{p}/ds_conv", f"{k}.downsample.0")
+                r.bn(f"{p}/ds_bn", f"{k}.downsample.1")
+    r.bn("bn2", "bn2")
+    r.dense("fc", "fc")
+    r.bn("bn3", "bn3")
     return r.sd
 
 

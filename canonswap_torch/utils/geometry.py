@@ -1,18 +1,25 @@
 """Crop geometry around landmarks: eye-lip-axis similarity transforms.
 
-The port's own copy of the parts of ``canonswap_tpu/utils/geometry.py`` that
-the 203-point landmark tracker needs (the reference's src/utils/crop.py:
-244-300, 381-455): the crop axis runs from the eye centre to the lip centre
-(cancelling roll), and the crop box is the square rotated bounding box of all
-landmarks, scaled by ``scale`` and shifted by ``vx_ratio``/``vy_ratio`` along
-the face axes.  The landmark math stays in numpy on the host, as there; the
-warp runs in torch on the image's device (the card's machine has no cv2).
+The port's own copy of ``canonswap_tpu/utils/geometry.py`` (the reference's
+src/utils/crop.py:244-529): the crop axis runs from the eye centre to the lip
+centre (cancelling roll), and the crop box is the square rotated bounding box
+of all landmarks, scaled by ``scale`` and shifted by ``vx_ratio``/
+``vy_ratio`` along the face axes; crops by a given transform or an
+axis-aligned box; and the paste-back of a swapped crop into its frame.  The
+landmark math stays in numpy on the host, as there; the warps and the blend
+run in torch on the image's device (the card's machine has no cv2).
 
 :func:`warp_affine` stands in for ``cv2.warpAffine(INTER_LINEAR)`` with its
 constant zero border: bilinear sampling at the inverse map (grid_sample's
-pixel-centre arithmetic), rounded half up to uint8 as cv2 rounds.  cv2 forms
-its sample positions in 1/32 pixel and its weights in fixed point, so the two
-differ by at most one grey level where a value falls near a rounding step.
+pixel-centre arithmetic).  A uint8 image is rounded half up to uint8, as cv2
+rounds; cv2 forms its sample positions in 1/32 pixel and its weights in
+fixed point, so the two differ by at most one grey level where a value falls
+near a rounding step.  A float image stays float, unrounded, as cv2 warps
+one (the paste-back mask).
+
+:func:`paste_back` follows the JAX package's native C++ paste-back
+(``native/canonswap_native.cpp``), not its cv2 fallback; its docstring says
+how the two differ.  It has one path, and a failure raises.
 """
 
 from __future__ import annotations
@@ -127,11 +134,14 @@ def transform_pts(pts: np.ndarray, M: np.ndarray) -> np.ndarray:
 
 
 def warp_affine(img: torch.Tensor, M: np.ndarray, dsize) -> torch.Tensor:
-    """``cv2.warpAffine(img, M, dsize, INTER_LINEAR)`` on a (H, W, C) uint8
-    tensor, on its device: ``dst(p) = src(M^-1 p)``, bilinear, zero outside
-    the image, rounded half up to uint8.  ``M`` maps source to destination
-    pixels (2x3 or 3x3); ``dsize`` is (w, h) or an int."""
+    """``cv2.warpAffine(img, M, dsize, INTER_LINEAR)`` on a (H, W, C) or
+    (H, W) tensor, on its device: ``dst(p) = src(M^-1 p)``, bilinear, zero
+    outside the image.  uint8 is rounded half up to uint8; a float image
+    keeps its dtype, unrounded.  ``M`` maps source to destination pixels
+    (2x3 or 3x3); ``dsize`` is (w, h) or an int."""
     w_out, h_out = (dsize, dsize) if isinstance(dsize, int) else dsize
+    if img.dim() == 2:
+        return warp_affine(img[..., None], M, dsize)[..., 0]
     h, w = img.shape[:2]
     minv = np.linalg.inv(np.vstack([np.asarray(M, np.float64)[:2],
                                     [0.0, 0.0, 1.0]]))[:2]
@@ -143,9 +153,13 @@ def warp_affine(img: torch.Tensor, M: np.ndarray, dsize) -> torch.Tensor:
     sy = minv[1, 0] * xs + minv[1, 1] * ys + minv[1, 2]
     # pixel centres at align_corners=False: x = ((g + 1) * W - 1) / 2
     grid = torch.stack([(2 * sx + 1) / w - 1, (2 * sy + 1) / h - 1], -1)
-    src = img.permute(2, 0, 1)[None].float()
-    out = F.grid_sample(src, grid[None].float(), mode="bilinear",
+    src = img.permute(2, 0, 1)[None]
+    if not src.is_floating_point():
+        src = src.float()
+    out = F.grid_sample(src, grid[None].to(src.dtype), mode="bilinear",
                         padding_mode="zeros", align_corners=False)
+    if img.is_floating_point():
+        return out[0].permute(1, 2, 0)
     return torch.floor(out + 0.5).clamp(0, 255)[0].permute(1, 2, 0).to(
         torch.uint8)
 
@@ -165,3 +179,128 @@ def crop_image(img: torch.Tensor, pts: np.ndarray, dsize: int = 224,
         "M_o2c": M_o2c,
         "M_c2o": M_c2o,
     }
+
+
+def parse_bbox_from_landmark(pts: np.ndarray, scale: float = 1.5,
+                             vx_ratio: float = 0.0, vy_ratio: float = 0.0,
+                             use_lip: bool = True) -> dict:
+    """Landmarks -> the face rect as axis-aligned and rotated corner sets
+    (crop.py:303-332); ``bbox`` rows are (lt, rt, rb, lb)."""
+    center, size, angle = parse_rect_from_landmark(
+        pts, scale=scale, vx_ratio=vx_ratio, vy_ratio=vy_ratio,
+        use_lip=use_lip)
+    cx, cy = center
+    w, h = size
+    bbox = np.array(
+        [[cx - w / 2, cy - h / 2], [cx + w / 2, cy - h / 2],
+         [cx + w / 2, cy + h / 2], [cx - w / 2, cy + h / 2]], DTYPE)
+    R = np.array([[np.cos(angle), -np.sin(angle)],
+                  [np.sin(angle), np.cos(angle)]], DTYPE)
+    bbox_rot = (bbox - center) @ R.T + center
+    return {"center": center, "size": size, "angle": angle,
+            "bbox": bbox, "bbox_rot": bbox_rot}
+
+
+def crop_image_mo2c(img: torch.Tensor, pts: np.ndarray, mo2c: np.ndarray,
+                    dsize: int = 224) -> dict:
+    """Crop by a given original-to-crop transform (crop.py:457-476)."""
+    M = np.asarray(mo2c, DTYPE)[:2, :]
+    M_o2c = np.vstack([M, np.array([0, 0, 1], DTYPE)])
+    return {
+        "img_crop": warp_affine(img, M, dsize),
+        "pt_crop": transform_pts(pts, M),
+        "M_o2c": M_o2c,
+        "M_c2o": np.linalg.inv(M_o2c).astype(DTYPE),
+    }
+
+
+def crop_image_by_bbox(img: torch.Tensor, bbox, lmk=None,
+                       dsize: int = 512) -> dict:
+    """Axis-aligned square crop of a box (left, top, right, bottom), the
+    scale taken from its width (crop.py:335-378, no-rotation branch)."""
+    left, top, right, bot = bbox
+    s = dsize / (right - left)
+    src_c = np.array([(left + right) / 2, (top + bot) / 2], DTYPE)
+    M = np.array(
+        [[s, 0, dsize / 2 - s * src_c[0]], [0, s, dsize / 2 - s * src_c[1]]],
+        DTYPE)
+    M_o2c = np.vstack([M, np.array([0, 0, 1], DTYPE)])
+    return {
+        "img_crop": warp_affine(img, M, dsize),
+        "lmk_crop": transform_pts(lmk, M) if lmk is not None else None,
+        "M_o2c": M_o2c,
+        "M_c2o": np.linalg.inv(M_o2c).astype(DTYPE),
+    }
+
+
+def average_bbox(bbox_lst):
+    if not bbox_lst:
+        return None
+    return np.mean(np.asarray(bbox_lst), axis=0).tolist()
+
+
+def prepare_paste_back(mask_crop: torch.Tensor, M_c2o: np.ndarray, dsize,
+                       if_float: bool = False) -> torch.Tensor:
+    """Warp the crop-space mask into the frame (crop.py:515-521): a float
+    mask warps unrounded; without ``if_float`` the result is scaled by
+    1/255 (a uint8 mask's range), as the JAX version does."""
+    mask_ori = warp_affine(mask_crop, M_c2o, dsize)
+    if not if_float:
+        mask_ori = mask_ori.float() / 255.0
+    return mask_ori
+
+
+def paste_back(img_crop: torch.Tensor, M_c2o: np.ndarray,
+               img_ori: torch.Tensor, mask_ori: torch.Tensor
+               ) -> torch.Tensor:
+    """Blend the swapped crop back into its frame (crop.py:523-529), on the
+    frame's device.
+
+    img_crop (ch, cw, 3) uint8 or float on the 0..255 scale; M_c2o the 2x3
+    or 3x3 crop-to-frame transform; img_ori (H, W, 3) uint8; mask_ori
+    (H, W) or (H, W, k) float in [0, 1], its first channel used.  Returns
+    (H, W, 3) uint8.
+
+    The arithmetic is the native C++ paste-back's
+    (``native/canonswap_native.cpp:32-77``), in f32: the frame-to-crop map
+    inverted from the f32 matrix, exact bilinear sampling of the crop at it
+    (corners outside the crop count zero), ``m * crop + (1 - m) * frame``
+    rounded once, half away from zero, and the frame's pixels copied where
+    m <= 0.  The JAX package's cv2 fallback instead warps the crop to uint8
+    first (1/32-pixel positions, rounded) and truncates the blend; the two
+    differ by at most one grey level."""
+    h, w = img_ori.shape[:2]
+    ch, cw = img_crop.shape[:2]
+    dev = img_ori.device
+    f32 = np.float32
+    (a, b, tx), (c, d, ty) = np.asarray(M_c2o, f32)[:2]
+    det = f32(a * d - b * c)  # numpy f32 scalars: f32 arithmetic
+    ia, ib, ic, id_ = f32(d / det), f32(-b / det), f32(-c / det), f32(
+        a / det)
+    itx, ity = f32(-(ia * tx + ib * ty)), f32(-(ic * tx + id_ * ty))
+    # as Python floats (exact), so the products below are f32 tensor ops
+    ia, ib, ic, id_, itx, ity = map(float, (ia, ib, ic, id_, itx, ity))
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    sx = ia * xs + ib * ys + itx
+    sy = ic * xs + id_ * ys + ity
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    fx, fy = sx - x0, sy - y0
+    x0, y0 = x0.long(), y0.long()
+    flat = img_crop.reshape(ch * cw, -1).float()
+    px = torch.zeros((h, w, flat.shape[1]), dtype=torch.float32, device=dev)
+    for dy in (0, 1):
+        yy = y0 + dy
+        wy = fy if dy else 1.0 - fy
+        for dx in (0, 1):
+            xx = x0 + dx
+            wt = wy * (fx if dx else 1.0 - fx)
+            inside = (yy >= 0) & (yy < ch) & (xx >= 0) & (xx < cw)
+            idx = yy.clamp(0, ch - 1) * cw + xx.clamp(0, cw - 1)
+            px = px + torch.where(inside, wt, 0.0)[..., None] * flat[idx]
+    m = mask_ori if mask_ori.dim() == 2 else mask_ori[..., 0]
+    m = m.float()[..., None]
+    v = m * px + (1.0 - m) * img_ori.float()
+    r = torch.floor(v)
+    r = (r + (v - r >= 0.5)).clamp(0, 255).to(torch.uint8)
+    return torch.where(m <= 0, img_ori, r)

@@ -51,7 +51,17 @@ Phases, one JSON line each:
      B=8 seeded 256 crops, f32, timed on the host clock, no kernel
      launched;
  11. sidecars card vs CPU: Segformer at TINY and MobileLandmarkNet at a
-     small input, outputs within 2e-4, masks equal but at near ties.
+     small input, outputs within 2e-4, masks equal but at near ties;
+ 12. clip path: a 16-frame seeded 720p clip from frames in host memory to
+     swapped frames in host memory: the source ID (SCRFD, the ID crop,
+     ArcFace (3, 4, 23, 3)), the Cropper (SCRFD and the 106 points on
+     frame 0, 203-point tracking, the 512 crop, the area resize to 256), the
+     main path's generator on two batches of 8, face parsing and the
+     paste-back on the card; times per part, frames/s, the exact warp's
+     launches counted;
+ 13. clip card vs CPU: SCRFD at full width on 128 x 128 (equal top-k
+     selections and NMS keep masks), ArcFace (1, 1, 1, 1), the 106-point
+     net, within 2e-4; paste_back equal but at rounding ties.
 Before the last line, one line lists every kernel with its launches on the
 main paths, its error against its plain version, its time, the plain
 version's, its bound and a library call's time where one computes the same
@@ -658,7 +668,7 @@ def phase_main_path() -> dict:
          in_range_out_mean=float(syn.float().mean()),
          in_range_out_std=float(syn.float().std()))
     return {"launches": launches[0], "batches": batches, "sid": sid,
-            "img": img, "median_ms": med, "stage_ms": stages}
+            "img": img, "median_ms": med, "stage_ms": stages, "core": core}
 
 
 def phase_main_path_fast(exact: dict) -> dict:
@@ -1495,10 +1505,10 @@ SIDECAR_CLIP = (16, 720, 1280)  # frames, height, width
 SIDECAR_CROPS = (8, 256)  # batch, side
 
 
-def seeded_clip(seed: int) -> np.ndarray:
+def seeded_clip(seed: int, shape=SIDECAR_CLIP) -> np.ndarray:
     """A 720p clip: a smooth pattern drifting a few pixels a frame, plus
     noise, uint8 RGB (T, H, W, 3)."""
-    t, h, w = SIDECAR_CLIP
+    t, h, w = shape
     g = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     frames = []
@@ -1656,6 +1666,390 @@ def phase_sidecars_card_vs_cpu() -> None:
         raise AssertionError(f"sidecars card vs CPU: {errs} over {bound}")
 
 
+CLIP_DET_SIZE = (512, 512)  # the session's det_size (w, h)
+CLIP_BATCH = 8  # InferenceConfig's batch
+# the ID crops and the clip's seeds (seeded_clip)
+CLIP_SOURCE_SEED, CLIP_SEED = 21, 13
+# Added to SCRFD's seeded score logits.  Seeded, the head scores every
+# anchor of the seeded frames between sigmoid(-0.7) and sigmoid(1.55), so
+# at CropConfig's threshold 0.1 all 128 candidates pass and survive NMS
+# (their seeded boxes do not overlap) and frame 0 runs the 106-point net
+# 128 times; at -3.7 the top few pass (logits above 1.503: 4 on frame 0 and
+# 4 on the source frame, the next 0.012 below), as a trained detector finds
+# a face or two.  The weights' other values are the seed's.
+CLS_BIAS = -3.7
+
+
+def timed_frames(frames, stamps: list):
+    """Yields ``frames``, stamping the host clock as each is asked for: the
+    gaps between stamps are the consumer's time per frame."""
+    for frame in frames:
+        stamps.append(time.perf_counter())
+        yield frame
+
+
+def phase_clip_path(core, dev=torch.device("cuda"), clip_shape=SIDECAR_CLIP,
+                    arcface_layers=(3, 4, 23, 3), segformer=None) -> dict:
+    """One clip from frames in host memory to swapped frames in host memory,
+    through the port's entry points, the face stack at full width in f32
+    (TF32 off, the JAX session's precision) and the main path's generator
+    ``core`` (CANONICAL, bf16, exact):
+
+    - the source ID: ``FaceIDCropper`` (SCRFD-10GF at det_size (512, 512),
+      ``CropConfig``'s threshold 0.1) and ``ArcFaceRunner`` (3, 4, 23, 3) at
+      112 on a seeded 720p source frame, through ``source_id``;
+    - ``Cropper.crop_source_video`` over the 16-frame seeded 720p clip:
+      SCRFD and ``Landmark106Runner`` (mobile, 192) on frame 0, the
+      203-point tracker on every frame, the 512 crop and its area resize
+      to 256;
+    - ``swap_with_motion`` on two batches of 8 crops with that ID;
+    - ``FaceParser.parse_masks`` (MiT-B1) on the same crops, then
+      ``prepare_paste_back`` and ``paste_back`` of each swapped 512 crop
+      into its frame on the card, and one copy of the 16 frames to the host.
+
+    The whole is run twice (the first run is set-up: cuDNN's choices) and
+    the second is timed on the host clock, each part ending in a
+    synchronize; detection is split into the net and the decode + NMS by
+    CUDA events, and NMS alone is timed too.  Hard checks: a face on frame
+    0, a finite unit-norm ID, 16 uint8 (720, 1280, 3) frames, the frames
+    untouched wherever the warped mask is 0, and the exact warp launched 2
+    times per batch with no other kernel."""
+    from canonswap_torch.configs import CropConfig
+    from canonswap_torch.models import parsing as PP
+    from canonswap_torch.models import scrfd as S
+    from canonswap_torch.models.arcface import ArcFaceRunner
+    from canonswap_torch.models.landmark import (Landmark106Runner,
+                                                 Landmark203Runner)
+    from canonswap_torch.ops.cuda.warp import WARP3D
+    from canonswap_torch.ops.detection import decode_scrfd, nms_fixed
+    from canonswap_torch.runtime import core as C
+    from canonswap_torch.runtime.cropper import Cropper
+    from canonswap_torch.runtime.face_analysis import (
+        FaceAnalysis, FaceIDCropper, source_id)
+    from canonswap_torch.utils import geometry as G
+
+    cfg = core.cfg
+    dtype = next(core.parameters()).dtype
+    n, h, w = clip_shape
+    crop_cfg = CropConfig(dsize=cfg.output_size)  # 512 at CANONICAL
+    t0 = time.perf_counter()
+    fa = FaceAnalysis(lmk106=Landmark106Runner(seed=3, device=dev),
+                      det_size=CLIP_DET_SIZE, det_thresh=crop_cfg.det_thresh,
+                      seed=0, device=dev)
+    with torch.no_grad():
+        fa.det_model.head.cls.bias += CLS_BIAS
+    cropper = Cropper(crop_cfg, fa, Landmark203Runner(seed=1, device=dev),
+                      network_input_size=cfg.input_size, device=dev)
+    id_cropper = FaceIDCropper(fa)
+    arcface = ArcFaceRunner(layers=arcface_layers, seed=4, device=dev)
+    parser = PP.FaceParser(segformer or PP.SegformerConfig(), seed=0,
+                           output_size=cfg.output_size, device=dev)
+    init_s = time.perf_counter() - t0
+    clip = seeded_clip(CLIP_SEED, clip_shape)
+    source = seeded_clip(CLIP_SOURCE_SEED, (1, h, w))[0]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def swap_clip() -> dict:
+        ms, stamps, launches = {}, [], []
+        clock = [time.perf_counter()]
+
+        def lap(name):
+            sync()
+            now = time.perf_counter()
+            ms[name] = ms.get(name, 0.0) + (now - clock[0]) * 1e3
+            clock[0] = now
+
+        start = clock[0]
+        sid = source_id(id_cropper, arcface, source, cfg.swap.latent_dim)
+        lap("source_id")
+        frames = torch.from_numpy(clip).to(dev)  # the one upload
+        lap("upload")
+        crops = cropper.crop_source_video(timed_frames(frames, stamps))
+        lap("crop")
+        stamps.append(clock[0])
+        out_frames, masks_ori, swapped = [], [], []
+        for lo in range(0, n, CLIP_BATCH):
+            batch = torch.stack(crops["frame_crop_lst"][lo:lo + CLIP_BATCH])
+            before = WARP3D.launches
+            x = (batch.float() / 255.0).to(dtype)
+            out, _ = C.swap_with_motion(core, x, sid, as_uint8=True)
+            lap("generator")
+            launches.append(WARP3D.launches - before)
+            masks = parser.parse_masks(batch)
+            lap("parsing")
+            for j in range(batch.shape[0]):
+                m_c2o = crops["M_c2o_lst"][lo + j]
+                mask_ori = G.prepare_paste_back(masks[j], m_c2o, (w, h),
+                                                if_float=True)
+                out_frames.append(G.paste_back(out["out"][j], m_c2o,
+                                               frames[lo + j], mask_ori))
+                masks_ori.append(mask_ori)
+            swapped.append(out["out"])
+            lap("paste_back")
+        result = torch.stack(out_frames).cpu().numpy()  # the one copy back
+        lap("download")
+        wall = (time.perf_counter() - start) * 1e3
+        return {"result": result, "sid": sid, "crops": crops, "ms": ms,
+                "wall_ms": wall, "frame_ms": np.diff(stamps) * 1e3,
+                "warp_launches_per_batch": launches, "masks_ori": masks_ori,
+                "frames": frames, "swapped": torch.cat(swapped)}
+
+    with torch.inference_mode():
+        cold = swap_clip()  # set-up
+        del cold["masks_ori"], cold["frames"], cold["swapped"]
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        run = swap_clip()
+        peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+                else None)
+        launches = launch_counts()
+        # detection of frame 0, split by CUDA events: net, decode + NMS, NMS
+        frame0 = run["frames"][0]
+        boxes, _ = fa.detect(frame0)
+        if boxes.shape[0] < 1:
+            raise AssertionError("clip_path: no face on frame 0")
+        faces = fa.get(frame0, flag_do_landmark_2d_106=False)
+        det = {"net": [], "decode_nms": [], "nms": [], "lmk106": []}
+        for _ in range(3):
+            blob, _ = S.preprocess(frame0, CLIP_DET_SIZE)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)] \
+                if dev.type == "cuda" else None
+            if ev:
+                ev[0].record()
+            outs = fa.det_model(blob)
+            if ev:
+                ev[1].record()
+            res = decode_scrfd(outs, input_size=CLIP_DET_SIZE,
+                               score_thresh=crop_cfg.det_thresh)
+            if ev:
+                ev[2].record()
+            nms_fixed(res["bboxes"], res["scores"])
+            if ev:
+                ev[3].record()
+            sync()
+            if ev:
+                for i, k in enumerate(("net", "decode_nms", "nms")):
+                    det[k].append(ev[i].elapsed_time(ev[i + 1]))
+            t1 = time.perf_counter()
+            fa.lmk106.get(frame0, faces[0].bbox)  # ends in the copy back
+            det["lmk106"].append((time.perf_counter() - t1) * 1e3)
+        valid0 = int(res["valid"].sum())
+        in_range = paste_at_a_face_sized_box(run["swapped"], run["frames"],
+                                             sync)
+    sid, result = run["sid"], run["result"]
+    norm = float(torch.linalg.vector_norm(sid.float()))
+    if not (bool(torch.isfinite(sid).all()) and abs(norm - 1.0) <= 1e-5
+            and sid.shape == (1, cfg.swap.latent_dim)):
+        raise AssertionError(f"clip_path: source ID {tuple(sid.shape)}, "
+                             f"norm {norm}")
+    if result.shape != (n, h, w, 3) or result.dtype != np.uint8 or len(
+            run["crops"]["frame_crop_lst"]) != n:
+        raise AssertionError(f"clip_path: output {result.shape} "
+                             f"{result.dtype}, {len(run['crops'])} crops")
+    untouched = changed = 0
+    for j, mask_ori in enumerate(run["masks_ori"]):
+        zero = (mask_ori[..., 0] <= 0).cpu().numpy()
+        untouched += int(zero.sum())
+        changed += int((result[j][zero] != clip[j][zero]).sum())
+    if untouched == 0 or changed:
+        raise AssertionError(f"clip_path: {changed} values changed where "
+                             f"the mask is 0 ({untouched} such pixels)")
+    per_batch = run["warp_launches_per_batch"]
+    if per_batch != [2] * (n // CLIP_BATCH) or launches != only(
+            warp3d=2 * (n // CLIP_BATCH)):
+        raise AssertionError(f"clip_path: warp launches per batch "
+                             f"{per_batch}, all launches {launches}")
+    frame_ms = run["frame_ms"]
+    batches = n // CLIP_BATCH
+    emit("clip_path", clip=list(clip_shape), det_size=list(CLIP_DET_SIZE),
+         det_thresh=crop_cfg.det_thresh, crop_dsize=crop_cfg.dsize,
+         generator=f"{type(core).__name__} {dtype}", batch=CLIP_BATCH,
+         init_s=init_s, faces_frame0=int(boxes.shape[0]),
+         valid_after_nms_frame0=valid0,
+         detect_ms={k: float(np.median(v)) for k, v in det.items() if v},
+         source_id_ms=run["ms"]["source_id"],
+         upload_ms=run["ms"]["upload"],
+         crop_frame0_ms=float(frame_ms[0]),
+         track_crop_ms_per_frame=float(np.mean(frame_ms[1:])),
+         track_crop_ms_frames=[float(v) for v in frame_ms],
+         generator_ms_per_batch=run["ms"]["generator"] / batches,
+         parsing_ms_per_batch=run["ms"]["parsing"] / batches,
+         paste_back_ms_per_frame=run["ms"]["paste_back"] / n,
+         download_ms=run["ms"]["download"], parts_ms=run["ms"],
+         wall_ms=run["wall_ms"], frames_per_s=n / (run["wall_ms"] / 1e3),
+         cold_wall_ms=cold["wall_ms"], max_memory_allocated=peak,
+         warp_launches_per_batch=per_batch, launches=list(launches),
+         launches_order=list(KERNEL_NAMES), source_id_norm=norm,
+         untouched_pixels=untouched, out_mean=float(result.mean()),
+         changed_values=int((result != clip).sum()),
+         in_range_paste_back=in_range,
+         crop_side_in_frame0=float(cfg.output_size / np.linalg.norm(
+             run["crops"]["M_o2c_lst"][0][0, :2])))
+    return {"launches": launches, "wall_ms": run["wall_ms"]}
+
+
+def feathered_disc(side: int) -> np.ndarray:
+    """A (side, side, 1) f32 mask: 1 inside 0.4 side of the centre, falling
+    to 0 over 0.08 side (a face region's feathered edge)."""
+    yy, xx = np.mgrid[0:side, 0:side]
+    r = np.hypot(yy - side / 2, xx - side / 2)
+    return np.clip((0.4 * side - r) / (0.08 * side), 0, 1)[
+        ..., None].astype(np.float32)
+
+
+def paste_at_a_face_sized_box(swapped, frames, sync) -> dict:
+    """The paste-back of the clip's swapped 512 crops where a face would
+    be: a box of 0.45 of the frame's height at its centre, turned by 5
+    degrees, through a feathered disc mask.  Seeded landmarks track onto a
+    region smaller than a pixel, so the clip's own paste-back changes few
+    pixels; this runs the blend on real pixels.  Checks that pixels change
+    inside and stay equal, bit for bit, where the mask is 0."""
+    from canonswap_torch.utils import geometry as G
+
+    n, side = swapped.shape[0], swapped.shape[1]
+    h, w = frames.shape[1:3]
+    k, th = 0.45 * h / side, np.deg2rad(5.0)
+    lin = k * np.array([[np.cos(th), -np.sin(th)], [np.sin(th),
+                                                     np.cos(th)]])
+    shift = np.array([w / 2, h / 2]) - lin @ np.array([side / 2, side / 2])
+    m_c2o = np.vstack([np.hstack([lin, shift[:, None]]),
+                       [0, 0, 1]]).astype(np.float32)
+    mask = torch.from_numpy(feathered_disc(side)).to(frames.device)
+    sync()
+    t0 = time.perf_counter()
+    pasted, zeros = [], []
+    for j in range(n):
+        mask_ori = G.prepare_paste_back(mask, m_c2o, (w, h), if_float=True)
+        pasted.append(G.paste_back(swapped[j], m_c2o, frames[j], mask_ori))
+        zeros.append(mask_ori[..., 0] <= 0)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    pasted, zeros = torch.stack(pasted), torch.stack(zeros)
+    changed = int((pasted != frames).any(-1).sum())
+    kept = bool(torch.equal(pasted[zeros], frames[zeros]))
+    if changed == 0 or not kept:
+        raise AssertionError(f"in-range paste-back: {changed} pixels changed,"
+                             f" untouched where the mask is 0: {kept}")
+    return {"ms_per_frame": ms, "changed_pixels": changed,
+            "mask_zero_pixels": int(zeros.sum()), "box_side": 0.45 * h}
+
+
+def exact_blend(crop, m_c2o, ori, mask) -> np.ndarray:
+    """paste_back's value before its one rounding, in f64 (numpy)."""
+    h, w = ori.shape[:2]
+    ch, cw = crop.shape[:2]
+    minv = np.linalg.inv(np.vstack([m_c2o[:2].astype(np.float64),
+                                    [0, 0, 1]]))
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    sx = minv[0, 0] * xs + minv[0, 1] * ys + minv[0, 2]
+    sy = minv[1, 0] * xs + minv[1, 1] * ys + minv[1, 2]
+    x0, y0 = np.floor(sx), np.floor(sy)
+    px = np.zeros((h, w, crop.shape[2]))
+    for dy in (0, 1):
+        for dx in (0, 1):
+            yi, xi = y0.astype(int) + dy, x0.astype(int) + dx
+            wgt = ((sy - y0) if dy else (1 - (sy - y0))) * (
+                (sx - x0) if dx else (1 - (sx - x0)))
+            ok = (yi >= 0) & (yi < ch) & (xi >= 0) & (xi < cw)
+            px += (wgt * ok)[..., None] * crop[yi.clip(0, ch - 1),
+                                               xi.clip(0, cw - 1)]
+    m = mask[..., :1].astype(np.float64)
+    return m * px + (1 - m) * ori
+
+
+def phase_clip_card_vs_cpu(dev=torch.device("cuda")) -> None:
+    """The clip path's modules on the card and on the CPU, same seeded
+    weights and inputs, f32, TF32 off, within 2e-4 max abs (the port's
+    tolerance against the JAX package: the same f32 sums in another order):
+    SCRFD at full width on a 128 x 128 input, with equal top-k selections
+    and NMS keep masks after the decode; ArcFace at layers (1, 1, 1, 1) on
+    the embedding and mid; Landmark106Runner's net on one crop; and
+    paste_back on a small frame, equal but where the exact blend lies within
+    1/32 of a grey level of a rounding step."""
+    from canonswap_torch.models import scrfd as S
+    from canonswap_torch.models.arcface import ArcFaceResNet
+    from canonswap_torch.models.landmark import Landmark106Runner
+    from canonswap_torch.nn.init import init_random_
+    from canonswap_torch.ops.detection import decode_scrfd
+    from canonswap_torch.utils import geometry as G
+
+    bound, tie = 2e-4, 1 / 32
+    g = np.random.default_rng(23)
+    reset_launch_counts()
+    errs = {}
+    with torch.inference_mode():
+        det = init_random_(S.SCRFD(), 7).eval()
+        x = torch.from_numpy(g.standard_normal((2, 3, 128, 128),
+                                               dtype=np.float32))
+        outs = {"cpu": det(x)}
+        outs["cuda"] = {s: {k: v.cpu() for k, v in o.items()}
+                        for s, o in det.to(dev)(x.to(dev)).items()}
+        errs["scrfd"] = max(float((outs["cuda"][s][k] - outs["cpu"][s][k])
+                                  .abs().max()) for s in outs["cpu"]
+                            for k in outs["cpu"][s])
+        dec = {d: decode_scrfd(o, input_size=(128, 128), score_thresh=0.5)
+               for d, o in outs.items()}
+        same_selection = bool(torch.equal(dec["cuda"]["index"],
+                                          dec["cpu"]["index"]))
+        same_keep = bool(torch.equal(dec["cuda"]["valid"],
+                                     dec["cpu"]["valid"]))
+        errs["scrfd_boxes"] = float((dec["cuda"]["bboxes"]
+                                     - dec["cpu"]["bboxes"]).abs().max()
+                                    ) / 128
+        arc = init_random_(ArcFaceResNet((1, 1, 1, 1)), 8).eval()
+        x = torch.from_numpy(g.standard_normal((2, 3, 112, 112),
+                                               dtype=np.float32))
+        want = arc(x)
+        got = [v.cpu() for v in arc.to(dev)(x.to(dev))]
+        errs["arcface_embedding"] = float((got[0] - want[0]).abs().max())
+        errs["arcface_mid"] = float((got[1] - want[1]).abs().max())
+        crop = torch.from_numpy((g.random((1, 192, 192, 3)) * 255).astype(
+            np.float32).round())
+        nets = {d: Landmark106Runner(seed=3, device=d).net
+                for d in ("cpu", dev)}
+        errs["landmark106"] = float((nets[dev](crop.to(dev)).cpu()
+                                     - nets["cpu"](crop)).abs().max())
+    ori = (g.random((90, 160, 3)) * 255).astype(np.uint8)
+    side = 64
+    crop8 = (g.random((side, side, 3)) * 255).astype(np.uint8)
+    m_c2o = np.array([[0.9, -0.2, 40.3], [0.2, 0.9, 5.7], [0, 0, 1]],
+                     np.float32)
+    mask = G.prepare_paste_back(torch.from_numpy(feathered_disc(side)),
+                                m_c2o, (160, 90), if_float=True)
+    pasted = {d: G.paste_back(torch.from_numpy(crop8).to(dev), m_c2o,
+                              torch.from_numpy(ori).to(dev), mask.to(dev))
+              .cpu().numpy() for d, dev in (("cpu", torch.device("cpu")),
+                                            ("cuda", dev))}
+    value = exact_blend(crop8, m_c2o, ori, mask.numpy())
+    near_tie = np.abs(value - np.floor(value) - 0.5) < tie
+    differ = pasted["cuda"] != pasted["cpu"]
+    launches = launch_counts()
+    emit("clip_card_vs_cpu", config="SCRFD-10GF at 128, ArcFace (1, 1, 1, "
+         "1), Landmark106Runner's net at 192, paste_back (90, 160)",
+         dtype="f32", bound_max_abs=bound, max_abs=errs,
+         same_topk_selection=same_selection, same_nms_keep=same_keep,
+         valid=int(dec["cpu"]["valid"].sum()),
+         paste_back_values_differ=int(differ.sum()),
+         paste_back_near_ties=int(near_tie.sum()),
+         paste_back_max_diff=int(np.abs(pasted["cuda"].astype(int)
+                                        - pasted["cpu"].astype(int)).max()),
+         launches=list(launches))
+    if launches != only():
+        raise AssertionError(f"clip card vs CPU launched {launches}")
+    if not (same_selection and same_keep):
+        raise AssertionError("clip card vs CPU: SCRFD's top-k selection or "
+                             "NMS keep mask differs")
+    if bool((differ & ~near_tie).any()):
+        raise AssertionError("clip card vs CPU: paste_back differs away "
+                             "from a rounding tie")
+    if not all(e <= bound for e in errs.values()):
+        raise AssertionError(f"clip card vs CPU: {errs} over {bound}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1678,6 +2072,8 @@ def main() -> int:
     probes = phase_probe_kernels()
     phase_sidecars_path()
     phase_sidecars_card_vs_cpu()
+    clip = phase_clip_path(main_path.pop("core"))
+    phase_clip_card_vs_cpu()
     bf16 = timings["smooth_bfloat16"]
     bf16_q = warp_q["timings"]["smooth_bfloat16"]
     adaptive = qconv["timings"]["adaptive"]
@@ -1687,6 +2083,7 @@ def main() -> int:
         "source": "canonswap_torch/csrc/warp3d.cu",
         "replaces": "canonswap_tpu/ops/pallas/warp.py:378",
         "launches": main_path["launches"],
+        "clip_path_launches": clip["launches"][0],
         "max_abs_err": bf16["max_abs_err"],
         "ms": float(np.median(bf16["kernel_ms"])),
         "plain_ms": float(np.median(bf16["plain_ms"])),

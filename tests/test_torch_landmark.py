@@ -1,4 +1,4 @@
-"""The port's 203-point landmark tracker vs the JAX package's, f32 on the CPU.
+"""The port's landmark nets and runners vs the JAX package's, f32 on the CPU.
 
 The JAX variables are flax's init at full width with every leaf drawn anew
 from a seed (``randomized``), carried to the port by
@@ -12,8 +12,17 @@ derived from that difference: for each prediction m,
 |d pred_m| <= 2 * sum over the differing pixel values i of |d pred_m / d x_i|
 * 1/255 + 2e-4 * (1 + |pred_m|), the gradient taken at the cv2 crop (first
 order; the factor 2 covers the PReLU kinks a one-grey-level step may cross)
-plus the net's tolerance; the points are 224 * A * pred plus a shift, A the
-crop-to-image transform's linear part, so |d pts| <= 224 * |A| |d pred|.
+plus the net's tolerance (``tests/helpers/torch_parity.py::
+crop_step_bound``, forward mode over the differing values); the points are
+224 * A * pred plus a shift, A the crop-to-image transform's linear part, so
+|d pts| <= 224 * |A| |d pred|.
+
+The 106-point runner (mobile trunk at 192, full width) and the residual
+trunk (at narrow widths, its test-speed knob) are held the same way: the
+residual net's modules and whole forward at 2e-4; the runner's net and
+decode on the JAX crop at 2e-4; its ``get`` within the same bound, whose
+input is the raw 0..255 crop, so one grey level is a step of 1, and whose
+points are 96 * (pred + 1) mapped back by the crop's inverse.
 """
 
 from __future__ import annotations
@@ -24,15 +33,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.func import vjp, vmap
 
 from canonswap_torch.models import landmark as PL
 from canonswap_torch.ops.resize import resize_like_cv2
-from canonswap_torch.runtime.weights import landmark_from_jax
+from canonswap_torch.runtime.weights import (landmark_from_jax,
+                                             landmark_net_from_jax)
 from canonswap_torch.utils import geometry as PG
 from canonswap_tpu.models import landmark as JL
 from canonswap_tpu.utils import geometry as JG
-from tests.helpers.torch_parity import assert_close, randomized, rng, t
+from tests.helpers.torch_parity import (assert_close, crop_step_bound,
+                                        randomized, rng, t)
 
 SIZE = 224
 
@@ -52,7 +62,7 @@ def _nhwc(x) -> np.ndarray:
     return np.moveaxis(np.asarray(x), 1, -1)
 
 
-# ---- geometry ----------------------------------------------------------------
+# ---- geometry ---------------------------------------------------------------
 
 
 def _landmarks(n: int, seed: int, center=(160.0, 120.0), spread=40.0):
@@ -117,7 +127,7 @@ def test_resize_within_one_grey_level_of_cv2(shape, size):
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
-# ---- modules -----------------------------------------------------------------
+# ---- modules ----------------------------------------------------------------
 
 
 def test_prelu_matches_jax(nets):
@@ -153,7 +163,7 @@ def test_net_matches_jax(nets):
     assert_close(got, want)
 
 
-# ---- the runner ----------------------------------------------------------------
+# ---- the runner -------------------------------------------------------------
 
 
 @pytest.fixture(scope="module")
@@ -199,18 +209,6 @@ def test_runner_net_and_decode_match_jax_on_the_same_crop(runners, branch):
     assert (np.abs(got - want) <= bound).all()
 
 
-def _crop_bound(net, crop_ref: np.ndarray, crop_got: np.ndarray,
-                pred: np.ndarray) -> np.ndarray:
-    """The module docstring's bound on |d pred| per prediction."""
-    x = t(crop_ref.astype(np.float32) / 255.0)[None]
-    _, pullback = vjp(lambda a: net(a)[0], x)
-    differ = t((crop_ref != crop_got).reshape(-1))
-    sums = [vmap(pullback)(rows)[0].reshape(len(rows), -1)[:, differ].abs()
-            .sum(1) for rows in torch.eye(pred.size).split(58)]
-    return (2 * torch.cat(sums).numpy() / 255.0
-            + 2e-4 * (1 + np.abs(pred)))
-
-
 @pytest.mark.parametrize("branch", sorted(BRANCHES))
 def test_runner_run_within_the_crop_bound(runners, branch):
     jr, pr = runners
@@ -222,7 +220,8 @@ def test_runner_run_within_the_crop_bound(runners, branch):
     assert np.abs(got_crop.astype(int) - want_crop.astype(int)).max() <= 1
     pred = np.asarray(jr._apply(jr.params, jnp.asarray(
         (want_crop.astype(np.float32) / 255.0)[None])))[0]
-    bound = _pts_bound(_crop_bound(pr.net, want_crop, got_crop, pred), m_c2o)
+    bound = _pts_bound(crop_step_bound(pr.net, want_crop, got_crop, pred,
+                                       1 / 255), m_c2o)
     got, want = pr.run(img, lmk), jr.run(img, lmk)
     err = np.abs(got - want)
     print(f"{branch}: {int((got_crop != want_crop).sum())} crop values "
@@ -247,3 +246,138 @@ def test_runner_without_a_device_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PL.Landmark203Runner()
+
+
+# ---- the residual trunk and the trunk switch --------------------------------
+
+WIDTHS = (8, 16, 16, 32)
+
+
+@pytest.fixture(scope="module")
+def residual():
+    """(JAX LandmarkNet, its variables, port LandmarkNet) at narrow widths."""
+    jnet = JL.LandmarkNet(num_points=106, widths=WIDTHS)
+    v = randomized(jax.jit(jnet.init)(jax.random.PRNGKey(0),
+                                      jnp.zeros((1, 96, 96, 3))), seed=4)
+    port = PL.LandmarkNet(106, widths=WIDTHS).eval().requires_grad_(False)
+    port.load_state_dict(landmark_net_from_jax(v), strict=True)
+    return jnet, v, port
+
+
+@pytest.mark.parametrize("name,c_in,stride", [("block0", 8, 1),
+                                              ("block1", 8, 2),
+                                              ("block3b", 32, 1)])
+def test_trunk_block_matches_jax(residual, name, c_in, stride):
+    _, v, port = residual
+    block = getattr(port, name)
+    features = block.conv1.out_channels
+    x = rng(21).standard_normal((2, c_in, 12, 10), dtype=np.float32)
+    want = JL._TrunkBlock(features, stride=stride).apply(
+        {"params": v["params"][name]}, jnp.asarray(_nhwc(x)))
+    assert (block.short is not None) == (stride != 1 or c_in != features)
+    assert_close(_nhwc(block(t(x))), want)
+
+
+def test_residual_net_matches_jax(residual):
+    jnet, v, port = residual
+    for side in (96, 64):
+        x = rng(22).random((2, side, side, 3), dtype=np.float32)
+        want = jax.jit(jnet.apply)(v, jnp.asarray(x))
+        got = port(t(x))
+        assert got.shape == (2, 212)
+        assert_close(got, want)
+
+
+def test_make_trunk_choices_and_errors():
+    assert isinstance(PL._make_trunk(106, "mobile", None, 192),
+                      PL.MobileLandmarkNet)
+    net = PL._make_trunk(203, "residual", None, 224)
+    assert isinstance(net, PL.LandmarkNet) and net.widths == \
+        PL.DEFAULT_WIDTHS == JL._DEFAULT_WIDTHS
+    with pytest.raises(ValueError, match="widths only applies"):
+        PL._make_trunk(106, "mobile", (8, 16), 192)
+    with pytest.raises(ValueError, match="widths only applies"):
+        JL._make_trunk(106, "mobile", (8, 16))
+    with pytest.raises(ValueError, match="unknown landmark trunk"):
+        PL._make_trunk(106, "resnet", None, 192)
+    with pytest.raises(ValueError, match="unknown landmark trunk"):
+        PL.Landmark106Runner(trunk="resnet", device="cpu")
+
+
+# ---- the 106-point runner ---------------------------------------------------
+
+SIZE106 = 192
+BOXES = {"box": np.array([120.0, 70.0, 200.0, 170.0], np.float32),
+         "zero_size": np.array([150.0, 100.0, 150.0, 100.0], np.float32),
+         "inverted": np.array([200.0, 170.0, 120.0, 70.0], np.float32)}
+
+
+@pytest.fixture(scope="module")
+def runners106():
+    jnet = JL.MobileLandmarkNet(num_points=106)
+    v = randomized(jax.jit(jnet.init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, SIZE106, SIZE106, 3))), seed=5)
+    jr = JL.Landmark106Runner(params=v)
+    pr = PL.Landmark106Runner(state_dict=landmark_from_jax(v), device="cpu")
+    return jr, pr
+
+
+def _jax_crop106(jr, img, bbox):
+    M = jr.crop_transform(bbox)
+    return JG.warp_affine(img, M, SIZE106), M
+
+
+@pytest.mark.parametrize("box", sorted(BOXES))
+def test_runner106_net_and_decode_match_jax_on_the_same_crop(runners106,
+                                                             box):
+    jr, pr = runners106
+    img, bbox = _frames()["noise"], BOXES[box]
+    crop, M = _jax_crop106(jr, img, bbox)
+    np.testing.assert_allclose(pr.crop_transform(bbox), M, rtol=1e-6)
+    want_pred = np.asarray(jr._apply(
+        jr.params, jnp.asarray(crop.astype(np.float32)[None])))[0]
+    got = pr.predict(t(crop))
+    assert_close((got / 96.0 - 1.0).reshape(-1), want_pred, rtol=2e-4,
+                 atol=2e-4 * (1 + np.abs(want_pred)).max())
+    Minv = np.linalg.inv(np.vstack([M, [0, 0, 1]]))[:2]
+    want = jr.get(img, bbox)
+    got_pts = PG.transform_pts(got, Minv)
+    bound = 96 * (2e-4 * (1 + np.abs(want_pred))).reshape(-1, 2) @ np.abs(
+        Minv[:, :2]).T
+    assert got_pts.shape == want.shape == (106, 2)
+    assert (np.abs(got_pts - want) <= bound).all()
+
+
+@pytest.mark.parametrize("box", sorted(BOXES))
+def test_runner106_get_within_the_crop_bound(runners106, box):
+    jr, pr = runners106
+    img, bbox = _frames()["noise"], BOXES[box]
+    want_crop, M = _jax_crop106(jr, img, bbox)
+    got_crop, _ = pr.crop(img, bbox)
+    got_crop = got_crop.numpy()
+    assert np.abs(got_crop.astype(int) - want_crop.astype(int)).max() <= 1
+    pred = np.asarray(jr._apply(jr.params, jnp.asarray(
+        want_crop.astype(np.float32)[None])))[0]
+    pred_bound = crop_step_bound(pr.net, want_crop, got_crop, pred, 1.0)
+    Minv = np.linalg.inv(np.vstack([M, [0, 0, 1]]))[:2]
+    bound = 96 * pred_bound.reshape(-1, 2) @ np.abs(Minv[:, :2]).T
+    got, want = pr.get(img, bbox), jr.get(img, bbox)
+    err = np.abs(got - want)
+    print(f"{box}: {int((got_crop != want_crop).sum())} crop values differ; "
+          f"max |d pts| {err.max():.3g} px, bound there "
+          f"{bound.reshape(-1)[err.argmax()]:.3g}")
+    assert got.shape == (106, 2) and np.isfinite(got).all()
+    assert (err <= bound).all()
+
+
+def test_runner106_takes_a_device_tensor(runners106):
+    _, pr = runners106
+    img = _frames()["smooth"]
+    np.testing.assert_array_equal(pr.get(t(img), BOXES["box"]),
+                                  pr.get(img, BOXES["box"]))
+
+
+def test_runner106_without_a_device_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PL.Landmark106Runner()

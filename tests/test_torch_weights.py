@@ -122,7 +122,11 @@ def test_port_sources_import_nothing_of_jax():
     included: no import of jax, flax or the JAX package."""
     banned = ("jax", "flax", "canonswap_tpu")
     files = sorted((REPO / "canonswap_torch").rglob("*.py"))
-    assert REPO / "canonswap_torch/runtime/weights.py" in files
+    for name in ("runtime/weights.py", "runtime/face_analysis.py",
+                 "runtime/cropper.py", "models/scrfd.py", "models/arcface.py",
+                 "ops/detection.py", "utils/face_align.py",
+                 "utils/smoothing.py"):
+        assert REPO / "canonswap_torch" / name in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -162,6 +166,7 @@ def test_port_imports_without_jax():
         "import canonswap_torch\n"
         "from canonswap_torch.runtime import core, weights\n"
         "from canonswap_torch.ops.cuda import warp\n"
+        "from canonswap_torch import configs\n"
         "from canonswap_torch.configs import TINY\n"
         "from canonswap_torch.ops.cuda import ms_deform_attn\n"
         "from canonswap_torch.models.xpose import runner, unipose\n"
@@ -169,7 +174,17 @@ def test_port_imports_without_jax():
         "from canonswap_torch.ops.cuda import probes\n"
         "from canonswap_torch.tools import launch_cost, profile_r2\n"
         "from canonswap_torch.ops.cuda import qconv\n"
+        "from canonswap_torch.models import arcface, scrfd\n"
+        "from canonswap_torch.ops import detection\n"
+        "from canonswap_torch.runtime import cropper, face_analysis\n"
+        "from canonswap_torch.utils import face_align, smoothing\n"
         "landmark.Landmark203Runner(device='cpu')\n"
+        "fa = face_analysis.FaceAnalysis(\n"
+        "    lmk106=landmark.Landmark106Runner(device='cpu'), device='cpu')\n"
+        "arcface.ArcFaceRunner(layers=(1, 1, 1, 1), device='cpu')\n"
+        "cropper.Cropper(configs.CropConfig(), fa,\n"
+        "                landmark.Landmark203Runner(device='cpu'),\n"
+        "                device='cpu')\n"
         "core.CanonSwapCore(TINY, device='cpu')\n"
         "print('ok')\n"
     )
