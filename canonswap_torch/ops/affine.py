@@ -7,8 +7,9 @@ and the last blur is split at ``threshold``: 1 above it, and below it
 renormalized by its own maximum per image.  The binary dilation, erosion
 and box blur pad as XLA's SAME does.  :func:`warp_affine_batch` and
 :func:`paste_back_batch` warp in pixel coordinates, bilinear, zero outside,
-in the images' dtype, as the JAX versions do.  Channels-last at the public
-functions, as in the JAX package.
+in the images' dtype, as the JAX versions do; their sampler,
+:func:`sample_bilinear`, also serves ``utils/geometry.py::paste_back``.
+Channels-last at the public functions, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -89,12 +90,39 @@ def blend_images(fg: torch.Tensor, bg: torch.Tensor,
     return fg * mask + bg * (1.0 - mask)
 
 
+def sample_bilinear(img: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor
+                    ) -> torch.Tensor:
+    """Bilinear samples of img (B, H, W, C) at pixel positions ``sx``,
+    ``sy`` (B, oh, ow) -> (B, oh, ow, C) in ``sx``'s dtype: the four
+    corners weighted exactly, each corner outside the image counting zero,
+    summed in the order (y0, x0), (y0, x1), (y1, x0), (y1, x1)."""
+    b, h, w, c = img.shape
+    oh, ow = sx.shape[1:]
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    fx, fy = sx - x0, sy - y0
+    x0, y0 = x0.long(), y0.long()
+    flat = img.reshape(b, h * w, c).to(sx.dtype)
+    out = torch.zeros((b, oh, ow, c), dtype=sx.dtype, device=sx.device)
+    for dy in (0, 1):
+        yi = y0 + dy
+        wy = fy if dy else 1.0 - fy
+        for dx in (0, 1):
+            xi = x0 + dx
+            wt = wy * (fx if dx else 1.0 - fx)
+            inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+            idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(b, -1)
+            g = torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
+            out = out + torch.where(inside, wt, 0.0)[..., None] * g.reshape(
+                b, oh, ow, c)
+    return out
+
+
 def warp_affine_batch(img: torch.Tensor, M: torch.Tensor,
                       out_hw: tuple[int, int]) -> torch.Tensor:
     """Batched affine warp in pixel coordinates: img (B, H, W, C), M
     (B, 2, 3) or (B, 3, 3) mapping source to destination pixels ->
     (B, oh, ow, C), ``dst(p) = src(M^-1 p)``, bilinear, zeros outside."""
-    b, h, w, c = img.shape
+    b = img.shape[0]
     oh, ow = out_hw
     last = torch.tensor([[0.0, 0.0, 1.0]], dtype=M.dtype,
                         device=M.device).expand(b, 1, 3)
@@ -104,23 +132,7 @@ def warp_affine_batch(img: torch.Tensor, M: torch.Tensor,
         torch.arange(ow, dtype=img.dtype, device=img.device), indexing="ij")
     dst = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)  # (oh, ow, 3)
     src = torch.einsum("bij,hwj->bhwi", minv[:, :2, :].to(img.dtype), dst)
-    x, y = src[..., 0], src[..., 1]
-    x0, y0 = torch.floor(x), torch.floor(y)
-    fx, fy = x - x0, y - y0
-    x0, y0 = x0.long(), y0.long()
-    flat = img.reshape(b, h * w, c)
-    out = 0.0
-    for dy in (0, 1):
-        for dx in (0, 1):
-            yi, xi = y0 + dy, x0 + dx
-            valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
-            idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(b, -1)
-            g = torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
-            wy = fy if dy else 1.0 - fy
-            wx = fx if dx else 1.0 - fx
-            out = out + g.reshape(b, oh, ow, c) * (
-                wy * wx * valid.to(img.dtype))[..., None]
-    return out
+    return sample_bilinear(img, src[..., 0], src[..., 1])
 
 
 def paste_back_batch(crops: torch.Tensor, M_c2o: torch.Tensor,

@@ -92,10 +92,11 @@ class Cropper:
         return area_resize_like_cv2(crop, (nis, nis))
 
     def _track(self, frame: torch.Tensor, traj: Trajectory, idx: int):
-        """This frame's landmarks for crop_driving_video and
-        crop_video_with_mo2c: detected on the first frame with a face,
-        tracked after (human faces) or detected again with the previous
-        frame's on a miss (animal faces); None while no face was found."""
+        """This frame's landmarks for the video crops: detected on the first
+        frame with a face, tracked after (human faces; the 203-point
+        tracker is a human-face net) or detected again every frame, with
+        the previous frame's on a miss (animal faces); None while no face
+        was found."""
         if idx == 0 or traj.start == -1:
             lmk106 = self._detect_lmk(frame)
             if lmk106 is None:
@@ -142,27 +143,9 @@ class Cropper:
         traj = Trajectory()
         for idx, frame_rgb in enumerate(frames_rgb):
             frame = on_device(frame_rgb, self.device)
-            if self.image_type != "human_face":
-                # the 203-point tracker is a human-face net: animal videos
-                # detect again every frame, reusing the previous landmarks
-                # on a miss
-                lmk = self._detect_lmk(frame)
-                if lmk is None:
-                    if traj.start == -1:
-                        continue
-                    lmk = traj.lmk_lst[-1]
-                elif traj.start == -1:
-                    traj.start = idx
-                traj.end = idx
-            elif idx == 0 or traj.start == -1:
-                lmk106 = self._detect_lmk(frame)
-                if lmk106 is None:
-                    continue
-                lmk = self.landmark_runner.run(frame, lmk106)
-                traj.start, traj.end = idx, idx
-            else:
-                lmk = self.landmark_runner.run(frame, traj.lmk_lst[-1])
-                traj.end = idx
+            lmk = self._track(frame, traj, idx)
+            if lmk is None:
+                continue
             traj.lmk_lst.append(lmk)
             ret = G.crop_image(frame, lmk, dsize=cfg.dsize, scale=cfg.scale,
                                vx_ratio=cfg.vx_ratio, vy_ratio=cfg.vy_ratio,

@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from canonswap_torch.ops.affine import sample_bilinear
+
 DTYPE = np.float32
 
 
@@ -284,23 +286,38 @@ def paste_back(img_crop: torch.Tensor, M_c2o: np.ndarray,
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
     sx = ia * xs + ib * ys + itx
     sy = ic * xs + id_ * ys + ity
-    x0, y0 = torch.floor(sx), torch.floor(sy)
-    fx, fy = sx - x0, sy - y0
-    x0, y0 = x0.long(), y0.long()
-    flat = img_crop.reshape(ch * cw, -1).float()
-    px = torch.zeros((h, w, flat.shape[1]), dtype=torch.float32, device=dev)
-    for dy in (0, 1):
-        yy = y0 + dy
-        wy = fy if dy else 1.0 - fy
-        for dx in (0, 1):
-            xx = x0 + dx
-            wt = wy * (fx if dx else 1.0 - fx)
-            inside = (yy >= 0) & (yy < ch) & (xx >= 0) & (xx < cw)
-            idx = yy.clamp(0, ch - 1) * cw + xx.clamp(0, cw - 1)
-            px = px + torch.where(inside, wt, 0.0)[..., None] * flat[idx]
+    px = sample_bilinear(img_crop.reshape(1, ch, cw, -1), sx[None],
+                         sy[None])[0]
     m = mask_ori if mask_ori.dim() == 2 else mask_ori[..., 0]
     m = m.float()[..., None]
     v = m * px + (1.0 - m) * img_ori.float()
     r = torch.floor(v)
     r = (r + (v - r >= 0.5)).clamp(0, 255).to(torch.uint8)
     return torch.where(m <= 0, img_ori, r)
+
+
+def paste_back_value(img_crop: np.ndarray, M_c2o: np.ndarray,
+                     img_ori: np.ndarray, mask_ori: np.ndarray) -> np.ndarray:
+    """:func:`paste_back`'s blend before its one rounding, in f64 (numpy,
+    on the host): the reference that tells a rounding tie, where two f32
+    arithmetics may round one grey level apart, from a fault."""
+    h, w = img_ori.shape[:2]
+    ch, cw = img_crop.shape[:2]
+    minv = np.linalg.inv(np.vstack([np.asarray(M_c2o, np.float64)[:2],
+                                    [0, 0, 1]]))
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    sx = minv[0, 0] * xs + minv[0, 1] * ys + minv[0, 2]
+    sy = minv[1, 0] * xs + minv[1, 1] * ys + minv[1, 2]
+    x0, y0 = np.floor(sx), np.floor(sy)
+    px = np.zeros((h, w, img_crop.shape[2]))
+    for dy in (0, 1):
+        for dx in (0, 1):
+            yi, xi = y0.astype(int) + dy, x0.astype(int) + dx
+            wgt = ((sy - y0) if dy else (1 - (sy - y0))) * (
+                (sx - x0) if dx else (1 - (sx - x0)))
+            ok = (yi >= 0) & (yi < ch) & (xi >= 0) & (xi < cw)
+            px += (wgt * ok)[..., None] * img_crop[yi.clip(0, ch - 1),
+                                                   xi.clip(0, cw - 1)]
+    m = (mask_ori if mask_ori.ndim == 2 else mask_ori[..., 0])[
+        ..., None].astype(np.float64)
+    return m * px + (1 - m) * img_ori

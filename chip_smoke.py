@@ -1670,14 +1670,65 @@ CLIP_DET_SIZE = (512, 512)  # the session's det_size (w, h)
 CLIP_BATCH = 8  # InferenceConfig's batch
 # the ID crops and the clip's seeds (seeded_clip)
 CLIP_SOURCE_SEED, CLIP_SEED = 21, 13
-# Added to SCRFD's seeded score logits.  Seeded, the head scores every
-# anchor of the seeded frames between sigmoid(-0.7) and sigmoid(1.55), so
-# at CropConfig's threshold 0.1 all 128 candidates pass and survive NMS
-# (their seeded boxes do not overlap) and frame 0 runs the 106-point net
-# 128 times; at -3.7 the top few pass (logits above 1.503: 4 on frame 0 and
-# 4 on the source frame, the next 0.012 below), as a trained detector finds
-# a face or two.  The weights' other values are the seed's.
+# Stated constants on the seeded face stack, so that the seeded clip holds a
+# face-sized track.  Seeded, SCRFD scores every anchor between sigmoid(-0.7)
+# and sigmoid(1.55), so at CropConfig's threshold 0.1 all 128 candidates
+# pass; its boxes come out inverted (x2 < x1), the 106-point crop shrinks to
+# its zero-size guard, the landmark heads put every point within a few
+# pixels of one another, and the track collapses below a pixel.  Set here,
+# in the phase, not in the package; the weights' other values are the
+# seed's.
+# Added to SCRFD's score logits: the top few anchors pass (logits above
+# 1.503: 4 on frame 0 and 4 on the source frame before NMS), as a trained
+# detector finds a face or two.
 CLS_BIAS = -3.7
+# Added to SCRFD's distance logits: boxes about 6 strides a side (frame 0's
+# faces come out at stride 16, about 236 pixels of the 720p frame).
+REG_BIAS = 3.0
+# The landmark heads' seeded weights are scaled by these, and their biases
+# set to a face layout (face_layout): the seeded part moves each point by
+# about 0.8 pixel of the 106 crop and 0.4 pixel of the 203 crop, so the
+# points keep a face's shape and still follow the image.
+LMK106_WEIGHT_SCALE, LMK203_WEIGHT_SCALE = 0.1, 0.02
+# The 512 crop's side in the frame, as a share of the frame's height, that
+# the track must hold on every frame: a face's crop, not a pixel's.
+CROP_SIDE_RANGE = (0.25, 1.5)
+
+
+def face_layout(n: int, left_eye, right_eye, lip) -> np.ndarray:
+    """(n, 2) points of an upright face in the unit square: a contour on
+    the circle that fills the square, the eye points at (0.3, 0.4) and
+    (0.7, 0.4), the lip points at (0.5, 0.78) (the indices that
+    ``utils/geometry.py``'s crop reads for an n-point set)."""
+    k = np.arange(n) * 2 * np.pi / n
+    u = np.stack([0.5 + 0.5 * np.sin(k), 0.5 - 0.5 * np.cos(k)], -1)
+    u[left_eye], u[right_eye], u[lip] = (0.3, 0.4), (0.7, 0.4), (0.5, 0.78)
+    return u
+
+
+def set_head(head, pred: np.ndarray, weight_scale: float) -> None:
+    """A landmark net's last layer: weights scaled, bias = ``pred``."""
+    with torch.no_grad():
+        head.weight *= weight_scale
+        head.bias.copy_(torch.from_numpy(pred.reshape(-1)))
+
+
+def hold_a_face(fa, tracker) -> None:
+    """Sets the stated constants above on the seeded SCRFD and landmark
+    heads.  The 106 layout fills the detection box, the middle 2/3 of its
+    192 crop: pred = points / 96 - 1.  The 203 layout is where its own crop
+    (224, scale 1.5, vy_ratio -0.1: the box 1.5 times the points' extent,
+    its centre 0.1 of its side above theirs) puts the points back, so
+    tracking holds the crop: pred = points / 224."""
+    with torch.no_grad():
+        fa.det_model.head.cls.bias += CLS_BIAS
+        fa.det_model.head.reg.bias += REG_BIAS
+    pts = (face_layout(106, [33, 35, 40, 39], [87, 89, 94, 93], [52, 61])
+           - 0.5) * 128 + 96
+    set_head(fa.lmk106.net.head, pts / 96 - 1, LMK106_WEIGHT_SCALE)
+    pts = (face_layout(203, [0, 6, 12, 18], [24, 30, 36, 42], [48, 66])
+           - 0.5) * (224 / 1.5) + (112, 112 + 0.1 * 224)
+    set_head(tracker.net.head, pts / 224, LMK203_WEIGHT_SCALE)
 
 
 def timed_frames(frames, stamps: list):
@@ -1688,8 +1739,7 @@ def timed_frames(frames, stamps: list):
         yield frame
 
 
-def phase_clip_path(core, dev=torch.device("cuda"), clip_shape=SIDECAR_CLIP,
-                    arcface_layers=(3, 4, 23, 3), segformer=None) -> dict:
+def phase_clip_path(core) -> dict:
     """One clip from frames in host memory to swapped frames in host memory,
     through the port's entry points, the face stack at full width in f32
     (TF32 off, the JAX session's precision) and the main path's generator
@@ -1705,15 +1755,18 @@ def phase_clip_path(core, dev=torch.device("cuda"), clip_shape=SIDECAR_CLIP,
     - ``swap_with_motion`` on two batches of 8 crops with that ID;
     - ``FaceParser.parse_masks`` (MiT-B1) on the same crops, then
       ``prepare_paste_back`` and ``paste_back`` of each swapped 512 crop
-      into its frame on the card, and one copy of the 16 frames to the host.
+      into its frame on the card at the clip's own ``M_c2o``, and one copy
+      of the 16 frames to the host.
 
-    The whole is run twice (the first run is set-up: cuDNN's choices) and
-    the second is timed on the host clock, each part ending in a
-    synchronize; detection is split into the net and the decode + NMS by
-    CUDA events, and NMS alone is timed too.  Hard checks: a face on frame
-    0, a finite unit-norm ID, 16 uint8 (720, 1280, 3) frames, the frames
-    untouched wherever the warped mask is 0, and the exact warp launched 2
-    times per batch with no other kernel."""
+    The seeded stack carries the stated constants of ``hold_a_face``.  The
+    whole is run twice (the first run is set-up: cuDNN's choices) and the
+    second is timed on the host clock, each part ending in a synchronize;
+    detection is split into the net and the decode + NMS by CUDA events,
+    and NMS alone is timed too.  Hard checks: a face on frame 0, a finite
+    unit-norm ID, 16 uint8 (720, 1280, 3) frames, every frame's crop
+    face-sized (CROP_SIDE_RANGE), the frames changed inside the warped mask
+    and untouched wherever it is 0, and the exact warp launched 2 times per
+    batch with no other kernel."""
     from canonswap_torch.configs import CropConfig
     from canonswap_torch.models import parsing as PP
     from canonswap_torch.models import scrfd as S
@@ -1730,34 +1783,30 @@ def phase_clip_path(core, dev=torch.device("cuda"), clip_shape=SIDECAR_CLIP,
 
     cfg = core.cfg
     dtype = next(core.parameters()).dtype
-    n, h, w = clip_shape
+    n, h, w = SIDECAR_CLIP
     crop_cfg = CropConfig(dsize=cfg.output_size)  # 512 at CANONICAL
     t0 = time.perf_counter()
-    fa = FaceAnalysis(lmk106=Landmark106Runner(seed=3, device=dev),
+    fa = FaceAnalysis(lmk106=Landmark106Runner(seed=3),
                       det_size=CLIP_DET_SIZE, det_thresh=crop_cfg.det_thresh,
-                      seed=0, device=dev)
-    with torch.no_grad():
-        fa.det_model.head.cls.bias += CLS_BIAS
-    cropper = Cropper(crop_cfg, fa, Landmark203Runner(seed=1, device=dev),
-                      network_input_size=cfg.input_size, device=dev)
+                      seed=0)
+    tracker = Landmark203Runner(seed=1)
+    hold_a_face(fa, tracker)
+    cropper = Cropper(crop_cfg, fa, tracker,
+                      network_input_size=cfg.input_size)
     id_cropper = FaceIDCropper(fa)
-    arcface = ArcFaceRunner(layers=arcface_layers, seed=4, device=dev)
-    parser = PP.FaceParser(segformer or PP.SegformerConfig(), seed=0,
-                           output_size=cfg.output_size, device=dev)
+    arcface = ArcFaceRunner(seed=4)  # (3, 4, 23, 3)
+    parser = PP.FaceParser(PP.SegformerConfig(), seed=0,
+                           output_size=cfg.output_size)
     init_s = time.perf_counter() - t0
-    clip = seeded_clip(CLIP_SEED, clip_shape)
+    clip = seeded_clip(CLIP_SEED)
     source = seeded_clip(CLIP_SOURCE_SEED, (1, h, w))[0]
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
 
     def swap_clip() -> dict:
         ms, stamps, launches = {}, [], []
         clock = [time.perf_counter()]
 
         def lap(name):
-            sync()
+            torch.cuda.synchronize()
             now = time.perf_counter()
             ms[name] = ms.get(name, 0.0) + (now - clock[0]) * 1e3
             clock[0] = now
@@ -1765,12 +1814,12 @@ def phase_clip_path(core, dev=torch.device("cuda"), clip_shape=SIDECAR_CLIP,
         start = clock[0]
         sid = source_id(id_cropper, arcface, source, cfg.swap.latent_dim)
         lap("source_id")
-        frames = torch.from_numpy(clip).to(dev)  # the one upload
+        frames = torch.from_numpy(clip).to("cuda")  # the one upload
         lap("upload")
         crops = cropper.crop_source_video(timed_frames(frames, stamps))
         lap("crop")
         stamps.append(clock[0])
-        out_frames, masks_ori, swapped = [], [], []
+        out_frames, masks_ori = [], []
         for lo in range(0, n, CLIP_BATCH):
             batch = torch.stack(crops["frame_crop_lst"][lo:lo + CLIP_BATCH])
             before = WARP3D.launches
@@ -1786,26 +1835,23 @@ def phase_clip_path(core, dev=torch.device("cuda"), clip_shape=SIDECAR_CLIP,
                                                 if_float=True)
                 out_frames.append(G.paste_back(out["out"][j], m_c2o,
                                                frames[lo + j], mask_ori))
-                masks_ori.append(mask_ori)
-            swapped.append(out["out"])
+                masks_ori.append(mask_ori[..., 0])
             lap("paste_back")
         result = torch.stack(out_frames).cpu().numpy()  # the one copy back
         lap("download")
         wall = (time.perf_counter() - start) * 1e3
         return {"result": result, "sid": sid, "crops": crops, "ms": ms,
                 "wall_ms": wall, "frame_ms": np.diff(stamps) * 1e3,
-                "warp_launches_per_batch": launches, "masks_ori": masks_ori,
-                "frames": frames, "swapped": torch.cat(swapped)}
+                "warp_launches_per_batch": launches,
+                "masks_ori": torch.stack(masks_ori), "frames": frames}
 
     with torch.inference_mode():
         cold = swap_clip()  # set-up
-        del cold["masks_ori"], cold["frames"], cold["swapped"]
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
+        del cold["masks_ori"], cold["frames"]
+        torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         run = swap_clip()
-        peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
-                else None)
+        peak = torch.cuda.max_memory_allocated()
         launches = launch_counts()
         # detection of frame 0, split by CUDA events: net, decode + NMS, NMS
         frame0 = run["frames"][0]
@@ -1816,30 +1862,23 @@ def phase_clip_path(core, dev=torch.device("cuda"), clip_shape=SIDECAR_CLIP,
         det = {"net": [], "decode_nms": [], "nms": [], "lmk106": []}
         for _ in range(3):
             blob, _ = S.preprocess(frame0, CLIP_DET_SIZE)
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)] \
-                if dev.type == "cuda" else None
-            if ev:
-                ev[0].record()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
             outs = fa.det_model(blob)
-            if ev:
-                ev[1].record()
+            ev[1].record()
             res = decode_scrfd(outs, input_size=CLIP_DET_SIZE,
                                score_thresh=crop_cfg.det_thresh)
-            if ev:
-                ev[2].record()
+            ev[2].record()
             nms_fixed(res["bboxes"], res["scores"])
-            if ev:
-                ev[3].record()
-            sync()
-            if ev:
-                for i, k in enumerate(("net", "decode_nms", "nms")):
-                    det[k].append(ev[i].elapsed_time(ev[i + 1]))
+            ev[3].record()
+            torch.cuda.synchronize()
+            for i, k in enumerate(("net", "decode_nms", "nms")):
+                det[k].append(ev[i].elapsed_time(ev[i + 1]))
             t1 = time.perf_counter()
             fa.lmk106.get(frame0, faces[0].bbox)  # ends in the copy back
             det["lmk106"].append((time.perf_counter() - t1) * 1e3)
         valid0 = int(res["valid"].sum())
-        in_range = paste_at_a_face_sized_box(run["swapped"], run["frames"],
-                                             sync)
+        mask = run["masks_ori"].cpu().numpy()
     sid, result = run["sid"], run["result"]
     norm = float(torch.linalg.vector_norm(sid.float()))
     if not (bool(torch.isfinite(sid).all()) and abs(norm - 1.0) <= 1e-5
@@ -1850,14 +1889,19 @@ def phase_clip_path(core, dev=torch.device("cuda"), clip_shape=SIDECAR_CLIP,
             run["crops"]["frame_crop_lst"]) != n:
         raise AssertionError(f"clip_path: output {result.shape} "
                              f"{result.dtype}, {len(run['crops'])} crops")
-    untouched = changed = 0
-    for j, mask_ori in enumerate(run["masks_ori"]):
-        zero = (mask_ori[..., 0] <= 0).cpu().numpy()
-        untouched += int(zero.sum())
-        changed += int((result[j][zero] != clip[j][zero]).sum())
-    if untouched == 0 or changed:
-        raise AssertionError(f"clip_path: {changed} values changed where "
-                             f"the mask is 0 ({untouched} such pixels)")
+    sides = [cfg.output_size / np.linalg.norm(m[0, :2]) / h
+             for m in run["crops"]["M_o2c_lst"]]
+    if not all(CROP_SIDE_RANGE[0] <= s <= CROP_SIDE_RANGE[1] for s in sides):
+        raise AssertionError(f"clip_path: crop side / frame height {sides} "
+                             f"outside {CROP_SIDE_RANGE}")
+    moved = (result != clip).any(-1)
+    zero = mask <= 0
+    inside = int(moved[mask >= 0.5].sum())
+    outside = int(moved[zero].sum())
+    if not zero.any() or inside == 0 or outside:
+        raise AssertionError(
+            f"clip_path: {inside} pixels changed where the mask is >= 0.5, "
+            f"{outside} where it is 0 ({int(zero.sum())} such pixels)")
     per_batch = run["warp_launches_per_batch"]
     if per_batch != [2] * (n // CLIP_BATCH) or launches != only(
             warp3d=2 * (n // CLIP_BATCH)):
@@ -1865,12 +1909,13 @@ def phase_clip_path(core, dev=torch.device("cuda"), clip_shape=SIDECAR_CLIP,
                              f"{per_batch}, all launches {launches}")
     frame_ms = run["frame_ms"]
     batches = n // CLIP_BATCH
-    emit("clip_path", clip=list(clip_shape), det_size=list(CLIP_DET_SIZE),
+    emit("clip_path", clip=list(SIDECAR_CLIP), det_size=list(CLIP_DET_SIZE),
          det_thresh=crop_cfg.det_thresh, crop_dsize=crop_cfg.dsize,
          generator=f"{type(core).__name__} {dtype}", batch=CLIP_BATCH,
          init_s=init_s, faces_frame0=int(boxes.shape[0]),
          valid_after_nms_frame0=valid0,
-         detect_ms={k: float(np.median(v)) for k, v in det.items() if v},
+         face_box_frame0=[float(v) for v in faces[0].bbox],
+         detect_ms={k: float(np.median(v)) for k, v in det.items()},
          source_id_ms=run["ms"]["source_id"],
          upload_ms=run["ms"]["upload"],
          crop_frame0_ms=float(frame_ms[0]),
@@ -1884,11 +1929,11 @@ def phase_clip_path(core, dev=torch.device("cuda"), clip_shape=SIDECAR_CLIP,
          cold_wall_ms=cold["wall_ms"], max_memory_allocated=peak,
          warp_launches_per_batch=per_batch, launches=list(launches),
          launches_order=list(KERNEL_NAMES), source_id_norm=norm,
-         untouched_pixels=untouched, out_mean=float(result.mean()),
-         changed_values=int((result != clip).sum()),
-         in_range_paste_back=in_range,
-         crop_side_in_frame0=float(cfg.output_size / np.linalg.norm(
-             run["crops"]["M_o2c_lst"][0][0, :2])))
+         crop_side_over_frame_height=[float(v) for v in sides],
+         mask_positive_pixels=int((mask > 0).sum()),
+         changed_pixels_mask_over_half=inside, mask_zero_pixels=int(
+             zero.sum()), changed_pixels=int(moved.sum()),
+         out_mean=float(result.mean()))
     return {"launches": launches, "wall_ms": run["wall_ms"]}
 
 
@@ -1901,67 +1946,7 @@ def feathered_disc(side: int) -> np.ndarray:
         ..., None].astype(np.float32)
 
 
-def paste_at_a_face_sized_box(swapped, frames, sync) -> dict:
-    """The paste-back of the clip's swapped 512 crops where a face would
-    be: a box of 0.45 of the frame's height at its centre, turned by 5
-    degrees, through a feathered disc mask.  Seeded landmarks track onto a
-    region smaller than a pixel, so the clip's own paste-back changes few
-    pixels; this runs the blend on real pixels.  Checks that pixels change
-    inside and stay equal, bit for bit, where the mask is 0."""
-    from canonswap_torch.utils import geometry as G
-
-    n, side = swapped.shape[0], swapped.shape[1]
-    h, w = frames.shape[1:3]
-    k, th = 0.45 * h / side, np.deg2rad(5.0)
-    lin = k * np.array([[np.cos(th), -np.sin(th)], [np.sin(th),
-                                                     np.cos(th)]])
-    shift = np.array([w / 2, h / 2]) - lin @ np.array([side / 2, side / 2])
-    m_c2o = np.vstack([np.hstack([lin, shift[:, None]]),
-                       [0, 0, 1]]).astype(np.float32)
-    mask = torch.from_numpy(feathered_disc(side)).to(frames.device)
-    sync()
-    t0 = time.perf_counter()
-    pasted, zeros = [], []
-    for j in range(n):
-        mask_ori = G.prepare_paste_back(mask, m_c2o, (w, h), if_float=True)
-        pasted.append(G.paste_back(swapped[j], m_c2o, frames[j], mask_ori))
-        zeros.append(mask_ori[..., 0] <= 0)
-    sync()
-    ms = (time.perf_counter() - t0) * 1e3 / n
-    pasted, zeros = torch.stack(pasted), torch.stack(zeros)
-    changed = int((pasted != frames).any(-1).sum())
-    kept = bool(torch.equal(pasted[zeros], frames[zeros]))
-    if changed == 0 or not kept:
-        raise AssertionError(f"in-range paste-back: {changed} pixels changed,"
-                             f" untouched where the mask is 0: {kept}")
-    return {"ms_per_frame": ms, "changed_pixels": changed,
-            "mask_zero_pixels": int(zeros.sum()), "box_side": 0.45 * h}
-
-
-def exact_blend(crop, m_c2o, ori, mask) -> np.ndarray:
-    """paste_back's value before its one rounding, in f64 (numpy)."""
-    h, w = ori.shape[:2]
-    ch, cw = crop.shape[:2]
-    minv = np.linalg.inv(np.vstack([m_c2o[:2].astype(np.float64),
-                                    [0, 0, 1]]))
-    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
-    sx = minv[0, 0] * xs + minv[0, 1] * ys + minv[0, 2]
-    sy = minv[1, 0] * xs + minv[1, 1] * ys + minv[1, 2]
-    x0, y0 = np.floor(sx), np.floor(sy)
-    px = np.zeros((h, w, crop.shape[2]))
-    for dy in (0, 1):
-        for dx in (0, 1):
-            yi, xi = y0.astype(int) + dy, x0.astype(int) + dx
-            wgt = ((sy - y0) if dy else (1 - (sy - y0))) * (
-                (sx - x0) if dx else (1 - (sx - x0)))
-            ok = (yi >= 0) & (yi < ch) & (xi >= 0) & (xi < cw)
-            px += (wgt * ok)[..., None] * crop[yi.clip(0, ch - 1),
-                                               xi.clip(0, cw - 1)]
-    m = mask[..., :1].astype(np.float64)
-    return m * px + (1 - m) * ori
-
-
-def phase_clip_card_vs_cpu(dev=torch.device("cuda")) -> None:
+def phase_clip_card_vs_cpu() -> None:
     """The clip path's modules on the card and on the CPU, same seeded
     weights and inputs, f32, TF32 off, within 2e-4 max abs (the port's
     tolerance against the JAX package: the same f32 sums in another order):
@@ -1987,7 +1972,7 @@ def phase_clip_card_vs_cpu(dev=torch.device("cuda")) -> None:
                                                dtype=np.float32))
         outs = {"cpu": det(x)}
         outs["cuda"] = {s: {k: v.cpu() for k, v in o.items()}
-                        for s, o in det.to(dev)(x.to(dev)).items()}
+                        for s, o in det.to("cuda")(x.to("cuda")).items()}
         errs["scrfd"] = max(float((outs["cuda"][s][k] - outs["cpu"][s][k])
                                   .abs().max()) for s in outs["cpu"]
                             for k in outs["cpu"][s])
@@ -2004,14 +1989,14 @@ def phase_clip_card_vs_cpu(dev=torch.device("cuda")) -> None:
         x = torch.from_numpy(g.standard_normal((2, 3, 112, 112),
                                                dtype=np.float32))
         want = arc(x)
-        got = [v.cpu() for v in arc.to(dev)(x.to(dev))]
+        got = [v.cpu() for v in arc.to("cuda")(x.to("cuda"))]
         errs["arcface_embedding"] = float((got[0] - want[0]).abs().max())
         errs["arcface_mid"] = float((got[1] - want[1]).abs().max())
         crop = torch.from_numpy((g.random((1, 192, 192, 3)) * 255).astype(
             np.float32).round())
         nets = {d: Landmark106Runner(seed=3, device=d).net
-                for d in ("cpu", dev)}
-        errs["landmark106"] = float((nets[dev](crop.to(dev)).cpu()
+                for d in ("cpu", "cuda")}
+        errs["landmark106"] = float((nets["cuda"](crop.to("cuda")).cpu()
                                      - nets["cpu"](crop)).abs().max())
     ori = (g.random((90, 160, 3)) * 255).astype(np.uint8)
     side = 64
@@ -2020,11 +2005,10 @@ def phase_clip_card_vs_cpu(dev=torch.device("cuda")) -> None:
                      np.float32)
     mask = G.prepare_paste_back(torch.from_numpy(feathered_disc(side)),
                                 m_c2o, (160, 90), if_float=True)
-    pasted = {d: G.paste_back(torch.from_numpy(crop8).to(dev), m_c2o,
-                              torch.from_numpy(ori).to(dev), mask.to(dev))
-              .cpu().numpy() for d, dev in (("cpu", torch.device("cpu")),
-                                            ("cuda", dev))}
-    value = exact_blend(crop8, m_c2o, ori, mask.numpy())
+    pasted = {d: G.paste_back(torch.from_numpy(crop8).to(d), m_c2o,
+                              torch.from_numpy(ori).to(d), mask.to(d))
+              .cpu().numpy() for d in ("cpu", "cuda")}
+    value = G.paste_back_value(crop8, m_c2o, ori, mask.numpy())
     near_tie = np.abs(value - np.floor(value) - 0.5) < tie
     differ = pasted["cuda"] != pasted["cpu"]
     launches = launch_counts()

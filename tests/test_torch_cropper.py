@@ -211,29 +211,6 @@ def test_float_and_uint8_mask_warps():
         ori.shape[:2]
 
 
-def _exact_blend(crop, m_c2o, ori, mask):
-    """The native path's value before its one rounding, in f64."""
-    h, w = ori.shape[:2]
-    ch, cw = crop.shape[:2]
-    minv = np.linalg.inv(np.vstack([m_c2o[:2].astype(np.float64),
-                                    [0, 0, 1]]))
-    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
-    sx = minv[0, 0] * xs + minv[0, 1] * ys + minv[0, 2]
-    sy = minv[1, 0] * xs + minv[1, 1] * ys + minv[1, 2]
-    x0, y0 = np.floor(sx), np.floor(sy)
-    px = np.zeros((h, w, 3))
-    for dy in (0, 1):
-        for dx in (0, 1):
-            yi, xi = y0.astype(int) + dy, x0.astype(int) + dx
-            wgt = ((sy - y0) if dy else (1 - (sy - y0))) * (
-                (sx - x0) if dx else (1 - (sx - x0)))
-            ok = (yi >= 0) & (yi < ch) & (xi >= 0) & (xi < cw)
-            px += (wgt * ok)[..., None] * crop[yi.clip(0, ch - 1),
-                                               xi.clip(0, cw - 1)]
-    m = mask[..., :1].astype(np.float64)
-    return m * px + (1 - m) * ori
-
-
 @pytest.mark.parametrize("seed", [12, 13])
 def test_paste_back_follows_the_native_arithmetic(seed):
     if not NAT.available():
@@ -243,7 +220,7 @@ def test_paste_back_follows_the_native_arithmetic(seed):
     mask_ori = JG.prepare_paste_back(mask, m_c2o, dsize, if_float=True)
     got = PG.paste_back(t(crop), m_c2o, t(ori), t(mask_ori)).numpy()
     native = NAT.paste_back(crop, m_c2o, ori, mask_ori)
-    value = _exact_blend(crop, m_c2o, ori, mask_ori)
+    value = PG.paste_back_value(crop, m_c2o, ori, mask_ori)
     near_tie = np.abs(value - np.floor(value) - 0.5) < 1 / 32
     differ = got != native
     print(f"{int(differ.sum())} of {got.size} values differ from the "

@@ -69,10 +69,11 @@ def test_the_cpu_by_name_runs_the_whole_stack():
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cudnn.allow_tf32 = False
+    # for this test only: later tests keep their own setting
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     return torch.device("cuda")
 
 
