@@ -14,14 +14,16 @@ counterpart here, nor have the options the fast bundle leaves off
 checkpoint's: the port always estimates the occlusion map and always ends
 the decoder in the 2x pixel-shuffle head (``upscale=2``).
 
-:class:`CropConfig` and :func:`partial_fields` are the port's copy of the
-Cropper's settings in ``canonswap_tpu/configs/pipeline_config.py``, field
-for field.
+:class:`ArgumentConfig` (the CLI), :class:`InferenceConfig` (the
+session), :class:`CropConfig` (the Cropper) and :func:`partial_fields` are
+the port's copy of ``canonswap_tpu/configs/pipeline_config.py``, field for
+field, with the same defaults.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Literal, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,6 +135,104 @@ def fast_bundle(cfg: CanonSwapModelConfig) -> CanonSwapModelConfig:
         swap=rep(cfg.swap, int8_conv=True),
         spade=rep(cfg.spade, int8_conv=True),
     )
+
+
+@dataclasses.dataclass
+class ArgumentConfig:
+    """The CLI's surface (the reference's argument_config.py:14-55)."""
+
+    source: str = ""  # path to the source portrait (identity donor)
+    driving: str = ""  # path to the target video/image (or .pkl template)
+    output_dir: str = "results/"
+
+    # inference flags
+    flag_use_half_precision: bool = True  # bf16 generator on the card
+    flag_crop_driving_video: bool = True
+    flag_normalize_lip: bool = False
+    flag_eye_retargeting: bool = False
+    flag_lip_retargeting: bool = False
+    flag_stitching: bool = False
+    flag_relative_motion: bool = False
+    flag_pasteback: bool = True
+    flag_do_crop: bool = True
+    # Kalman-smooth the motion template along the frame axis before the swap
+    # pass (the reference's src/utils/filter.py:8-19, shipped but unwired
+    # there); forces the two-pass (template-first) path
+    flag_smooth_motion: bool = False
+    audio_priority: Literal["source", "driving"] = "driving"
+
+    # source crop args
+    det_thresh: float = 0.15
+    scale: float = 2.3
+    vx_ratio: float = 0.0
+    vy_ratio: float = -0.125
+    flag_do_rot: bool = True
+    source_max_dim: int = 4096
+    source_division: int = 2
+
+    # driving crop args
+    scale_crop_driving_video: float = 2.2
+    vx_ratio_crop_driving_video: float = 0.0
+    vy_ratio_crop_driving_video: float = -0.1
+
+    # the runtime's
+    batch_size: int = 8  # frames per generator call
+    checkpoint: Optional[str] = None  # combined_weights.pth (torch)
+    stitching_checkpoint: Optional[str] = None
+    dense_motion_scale: int = 1  # >1: half-res dense-motion speed mode
+    flag_int8: bool = False  # W8A8 convs and the W8A8 warp
+    spade_norm_scale: int = 1  # >1 is not in the port: the session raises
+    warp_impl: str = "auto"  # the warp backend; the port has only "auto"
+    # NaN/inf gate on every swapped batch (not in the port: the session
+    # raises)
+    debug_nans: bool = False
+    # zero weights in place of the seeded ones (faster start); with
+    # --checkpoint for real outputs, alone for timing the pipeline
+    fast_init: bool = False
+
+
+@dataclasses.dataclass
+class InferenceConfig:
+    """Runtime configuration (the reference's inference_config.py:19-69)."""
+
+    flag_use_half_precision: bool = True
+    flag_crop_driving_video: bool = False
+    flag_normalize_lip: bool = True
+    flag_eye_retargeting: bool = False
+    flag_lip_retargeting: bool = False
+    # stitching is off by default, as the reference's entry points force it
+    # (inference_canswap.py:56); on, the session raises (not in the port)
+    flag_stitching: bool = False
+    flag_relative_motion: bool = False  # unsupported: the session raises
+    flag_pasteback: bool = True
+    flag_do_crop: bool = True
+    flag_do_rot: bool = True
+    flag_smooth_motion: bool = False
+
+    source_max_dim: int = 1280
+    source_division: int = 2
+    input_shape: tuple[int, int] = (256, 256)
+    output_format: Literal["mp4", "gif"] = "mp4"
+    crf: int = 15
+    output_fps: int = 25
+
+    batch_size: int = 8
+    checkpoint: Optional[str] = None
+    # the stitching/retargeting checkpoint, for flag_stitching /
+    # flag_*_retargeting (not in the port)
+    stitching_checkpoint: Optional[str] = None
+    # >1 estimates the dense deformation field at 1/N in-plane resolution
+    # (exact at 1; the speed/quality knob)
+    dense_motion_scale: int = 1
+    # W8A8 int8 convs (ops/qconv.py) and the W8A8 warp
+    flag_int8: bool = False
+    # >1: SPADE up-block gamma/beta at 1/N output res (not in the port)
+    spade_norm_scale: int = 1
+    # the trilinear warp's backend: "auto" is the CUDA kernel on the card
+    # (the W8A8 one under flag_int8), its plain version on the CPU
+    warp_impl: str = "auto"
+    # NaN/inf gate on every swapped batch (not in the port)
+    debug_nans: bool = False
 
 
 @dataclasses.dataclass

@@ -40,10 +40,11 @@ class WarpingNetwork(nn.Module):
         warped = self.sample(feature_3d.contiguous(), dense["deformation"])
         return warped, dense["occlusion_map"], dense
 
-    def warp_out(self, volume, occlusion_map):
-        """(B, C, D, H, W) volume, (B, 1, H, W) occlusion -> (B, out_ch, H, W)
-        decoder input."""
-        return self.fourth(self.third(volume_to_2d(volume))) * occlusion_map
+    def warp_out(self, volume, occlusion_map=None):
+        """(B, C, D, H, W) volume, (B, 1, H, W) occlusion or None ->
+        (B, out_ch, H, W) decoder input (times the occlusion where given)."""
+        out = self.fourth(self.third(volume_to_2d(volume)))
+        return out if occlusion_map is None else out * occlusion_map
 
     def forward(self, feature_3d, kp_driving, kp_source) -> dict:
         warped, occ, dense = self.warp(feature_3d, kp_driving, kp_source)

@@ -18,16 +18,16 @@ import torch.nn.functional as F
 
 
 def bilinear_resize(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
-    """(N, C, H, W) -> (N, C, *size): ``jax.image.resize(method="linear")``
-    where it upsamples.  There it is the half-pixel bilinear map of
+    """(N, C, H, W) -> (N, C, *size): ``jax.image.resize(method="linear")``.
+    Where it upsamples, the half-pixel bilinear map of
     ``F.interpolate(align_corners=False)``: the triangle kernel, whose
     out-of-image taps jax drops and renormalizes, which is the edge clamp.
-    Downsampling raises: jax then widens the kernel (antialiasing), which
-    nothing of the port needs."""
+    Where it downsamples, jax widens the kernel by the scale (antialiasing),
+    which is ``antialias=True``; that form is computed in f32 and cast back,
+    as XLA sums the scaled weights in f32 and rounds once."""
     if size[0] < x.shape[-2] or size[1] < x.shape[-1]:
-        raise ValueError(
-            f"bilinear_resize upsamples only (jax.image.resize antialiases "
-            f"a downsample): {tuple(x.shape[-2:])} -> {tuple(size)}")
+        return F.interpolate(x.float(), size=tuple(size), mode="bilinear",
+                             align_corners=False, antialias=True).to(x.dtype)
     return F.interpolate(x, size=tuple(size), mode="bilinear",
                          align_corners=False)
 

@@ -101,14 +101,26 @@ def warp_decode(core: CanonSwapCore, volume, x_can, x_t):
     return core.spade_generator(ret["out"]).permute(0, 2, 3, 1)
 
 
+def conv_decode(core: CanonSwapCore, volume, occlusion_map=None):
+    """A volume decoded without a warp (the reference's conv_decode,
+    can_swap_e2e.py:309-312): ``warp_out`` (times the occlusion map where
+    given), then SPADE -> (B, 2S, 2S, 3).  The canonical debug strips and
+    the v2i swap-once path."""
+    out = core.warping_module.warp_out(volume, occlusion_map)
+    return core.spade_generator(out).permute(0, 2, 3, 1)
+
+
 def swap_step(core: CanonSwapCore, frames: torch.Tensor,
-              source_id: torch.Tensor, motion: dict) -> dict:
+              source_id: torch.Tensor, motion: dict, *,
+              with_debug: bool = False) -> dict:
     """One frame batch: F -> warp to canonical -> swap -> refine -> warp back
     and decode.
 
     frames: (B, S, S, 3) in [0, 1]; source_id: (1 or B, latent)
     L2-normalized ID embedding; motion: 'kp', 'scale', 'x_t' of these frames.
-    Returns dict(out=(B, 2S, 2S, 3))."""
+    ``with_debug`` also decodes the canonical reconstruction and the
+    canonical swap, before refine (the reference's debug strips).
+    Returns dict(out=(B, 2S, 2S, 3) [, rec_can, swap_can])."""
     b = frames.shape[0]
     if source_id.shape[0] == 1 and b != 1:
         source_id = source_id.expand(b, source_id.shape[1])
@@ -116,21 +128,58 @@ def swap_step(core: CanonSwapCore, frames: torch.Tensor,
     # keypoint math arrives in f32; the compute path follows the frame dtype
     x_can = (motion["scale"][..., None] * motion["kp"]).to(frames.dtype)
     x_t = motion["x_t"].to(frames.dtype)
-    f_can, _ = warp_to_canonical(core, f_s, x_t, x_can)
-    f_swap = refine_volume(core, inject_identity(core, f_can, source_id))
-    return {"out": warp_decode(core, f_swap, x_can, x_t)}
+    f_can, occ = warp_to_canonical(core, f_s, x_t, x_can)
+    f_swap = inject_identity(core, f_can, source_id)
+    out = {}
+    if with_debug:
+        out["rec_can"] = conv_decode(core, f_can, occ)
+        out["swap_can"] = conv_decode(core, f_swap, occ)
+    out["out"] = warp_decode(core, refine_volume(core, f_swap), x_can, x_t)
+    return out
+
+
+def reanimate_step(core: CanonSwapCore, volume, x_swap, kp_swap, rot_swap,
+                   t_swap, scale_swap, delta_t) -> torch.Tensor:
+    """The v2i batch (can_swap_pipeline_v2i.py:260-309): one swapped
+    canonical volume re-animated by the driving expressions.
+
+    ``x_t_2 = scale_swap * (kp_swap @ rot_swap + delta_t)`` plus t_swap's
+    xy, then ``warp_decode(volume, kp_source=x_swap, kp_driving=x_t_2)``.
+    volume: (1, C, D, H, W); x_swap, kp_swap: (1, K, 3); rot_swap:
+    (1, 3, 3); t_swap: (1, 3); scale_swap: (1, 1); delta_t: (B, K, 3).
+    The keypoint math runs in f32, then follows the volume's dtype; the
+    volume and x_swap are broadcast to the batch.  Returns (B, 2S, 2S, 3)."""
+    b = delta_t.shape[0]
+    f32 = torch.float32
+    x_t_2 = scale_swap.to(f32)[..., None] * (
+        kp_swap.to(f32) @ rot_swap.to(f32) + delta_t.to(f32))
+    x_t_2 = torch.cat([x_t_2[..., :2] + t_swap.to(f32)[:, None, :2],
+                       x_t_2[..., 2:]], dim=-1)
+    vol = volume.expand(b, *volume.shape[1:])
+    x_swap_b = x_swap.expand(b, *x_swap.shape[1:])
+    return warp_decode(core, vol, x_swap_b.to(vol.dtype),
+                       x_t_2.to(vol.dtype))
 
 
 def swap_with_motion(core: CanonSwapCore, frames: torch.Tensor,
-                     source_id: torch.Tensor, *, as_uint8: bool = False):
+                     source_id: torch.Tensor, *, with_debug: bool = False,
+                     as_uint8: bool = False):
     """Motion extraction + swap step for one frame batch.
 
-    ``as_uint8`` quantizes the images on the device, clip(255 * v) truncated
-    as the JAX package does.  Returns (outputs dict, motion dict)."""
+    ``with_debug`` adds the canonical strips (:func:`swap_step`);
+    ``as_uint8`` quantizes the images on the device, clip(255 * v)
+    truncated as the JAX package does.  Returns (outputs dict, motion
+    dict)."""
     with torch.inference_mode():
         motion = extract_motion(core, frames)
-        out = swap_step(core, frames, source_id, motion)
+        out = swap_step(core, frames, source_id, motion,
+                        with_debug=with_debug)
         if as_uint8:
-            out = {k: torch.clamp(v.float() * 255.0, 0, 255).to(torch.uint8)
-                   for k, v in out.items()}
+            out = {k: to_uint8(v) for k, v in out.items()}
     return out, motion
+
+
+def to_uint8(x: torch.Tensor) -> torch.Tensor:
+    """[0, 1] images -> uint8 on their device: clip(255 v) in f32, then
+    truncated, as the JAX package quantizes."""
+    return torch.clamp(x.float() * 255.0, 0, 255).to(torch.uint8)

@@ -21,7 +21,8 @@ the reference checkpoint, which are the port's own.  Conventions undone here:
 
 Besides the core's six networks: the sidecars' and the face stack's nets
 (``landmark_from_jax``, ``landmark_net_from_jax``, ``segformer_from_jax``,
-``scrfd_from_jax``, ``arcface_from_jax``).
+``scrfd_from_jax``, ``arcface_from_jax``), and a whole JAX session's
+(:func:`session_from_jax`).
 
 Spectral norm stays baked into the SPADE convs' ``weight``.
 """
@@ -449,3 +450,28 @@ def from_jax(variables: dict[str, Any]) -> dict[str, torch.Tensor]:
         for key, value in fn(variables[net]).items():
             out[f"{net}.{key}"] = value
     return out
+
+
+def session_from_jax(session, trees: dict[str, Any]) -> None:
+    """A JAX ``FaceSwapSession``'s weights into a port session, strict keys.
+
+    ``trees`` holds the JAX session's variable trees (numpy or jax arrays):
+    ``core`` (``params``, the six networks), ``scrfd``
+    (``face_analysis.det_params``), ``landmark203`` and ``landmark106``
+    (the runners' ``params``), ``parsing`` (``parsing_params``) and
+    ``arcface`` (``arcface_params``).  The landmark trees go through the
+    converter of the port runner's trunk; the core is cast to the session's
+    compute dtype on load."""
+    landmark = {"mobile": landmark_from_jax,
+                "residual": landmark_net_from_jax}
+    targets = (
+        (session.core, from_jax, "core"),
+        (session.face_analysis.det_model, scrfd_from_jax, "scrfd"),
+        (session.landmark203.net, landmark[session.landmark203.trunk],
+         "landmark203"),
+        (session.lmk106.net, landmark[session.lmk106.trunk], "landmark106"),
+        (session.parsing.model, segformer_from_jax, "parsing"),
+        (session.arcface.net, arcface_from_jax, "arcface"),
+    )
+    for module, convert, name in targets:
+        module.load_state_dict(convert(trees[name]), strict=True)

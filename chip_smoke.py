@@ -53,20 +53,35 @@ Phases, one JSON line each:
  11. sidecars card vs CPU: Segformer at TINY and MobileLandmarkNet at a
      small input, outputs within 2e-4, masks equal but at near ties;
  12. clip path: a 16-frame seeded 720p clip from frames in host memory to
-     swapped frames in host memory: the source ID (SCRFD, the ID crop,
-     ArcFace (3, 4, 23, 3)), the Cropper (SCRFD and the 106 points on
-     frame 0, 203-point tracking, the 512 crop, the area resize to 256), the
-     main path's generator on two batches of 8, face parsing and the
-     paste-back on the card; times per part, frames/s, the exact warp's
-     launches counted;
+     swapped frames in host memory, strung by hand from a FaceSwapSession's
+     components (CANONICAL bf16, full-width sidecars): the source ID
+     (SCRFD, the ID crop, ArcFace (3, 4, 23, 3)), the Cropper (SCRFD and
+     the 106 points on frame 0, 203-point tracking, the 512 crop, the area
+     resize to 256), the main path's generator on two batches of 8, face
+     parsing and the paste-back on the card; times per part, frames/s, the
+     exact warp's launches counted;
  13. clip card vs CPU: SCRFD at full width on 128 x 128 (equal top-k
      selections and NMS keep masks), ArcFace (1, 1, 1, 1), the 106-point
-     net, within 2e-4; paste_back equal but at rounding ties.
+     net, within 2e-4; paste_back equal but at rounding ties;
+ 14. codec tools: whether cv2, PIL and ffmpeg are installed (the pipelines
+     need none of them);
+ 15. pipeline swap: swap_e2e.execute, the user's swap, through the same
+     session on that clip written as a .npy and its source frame as a .ppm,
+     twice (the second from the dumped motion template, timed, StageTimer's
+     parts), its frames held to the first run's and to clip_path's;
+ 16. pipeline v2i and multi: swap_v2i.execute on 8 frames and
+     swap_multi.execute on the 16 through the same session; a .mp4 with
+     cv2 hidden raises naming the file;
+ 17. pipeline stream fast: streaming.execute with the fast bundle's flags in
+     a session of its own, the three kernels' launches per batch counted;
+ 18. CLI swap: python -m canonswap_torch.cli.main swap on 8 frames, as a
+     subprocess.
 Before the last line, one line lists every kernel with its launches on the
-main paths, its error against its plain version, its time, the plain
-version's, its bound and a library call's time where one computes the same
-function (the probes also their host cost and graph-replayed time).  Any
-failure exits nonzero.  The last line is the run's one-line verdict.
+main paths (and on the pipelines), its error against its plain version,
+its time, the plain version's, its bound and a library call's time where
+one computes the same function (the probes also their host cost and
+graph-replayed time).  Any failure exits nonzero.  The last line is the
+run's one-line verdict.
 """
 
 from __future__ import annotations
@@ -74,6 +89,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -668,7 +684,7 @@ def phase_main_path() -> dict:
          in_range_out_mean=float(syn.float().mean()),
          in_range_out_std=float(syn.float().std()))
     return {"launches": launches[0], "batches": batches, "sid": sid,
-            "img": img, "median_ms": med, "stage_ms": stages, "core": core}
+            "img": img, "median_ms": med, "stage_ms": stages}
 
 
 def phase_main_path_fast(exact: dict) -> dict:
@@ -1739,11 +1755,29 @@ def timed_frames(frames, stamps: list):
         yield frame
 
 
-def phase_clip_path(core) -> dict:
+def clip_session(**inference):
+    """A FaceSwapSession at CANONICAL with the full-width sidecars on the
+    card, bf16 generator, and the stated constants of ``hold_a_face`` on
+    its SCRFD and landmark heads.  At seed 0 the session's components take
+    the seeds the clip path always had (``pipelines/session.py::
+    SEED_OFFSETS``): the generator is the main path's, seed 0."""
+    from canonswap_torch.configs import InferenceConfig
+    from canonswap_torch.pipelines.session import FaceSwapSession
+
+    t0 = time.perf_counter()
+    session = FaceSwapSession(InferenceConfig(**inference),
+                              det_size=CLIP_DET_SIZE, seed=0)
+    hold_a_face(session.face_analysis, session.landmark203)
+    session.init_s = time.perf_counter() - t0
+    return session
+
+
+def phase_clip_path(session) -> dict:
     """One clip from frames in host memory to swapped frames in host memory,
-    through the port's entry points, the face stack at full width in f32
+    through the port's entry points, strung by hand from ``session``'s
+    components (``clip_session``): the face stack at full width in f32
     (TF32 off, the JAX session's precision) and the main path's generator
-    ``core`` (CANONICAL, bf16, exact):
+    (CANONICAL, bf16, exact):
 
     - the source ID: ``FaceIDCropper`` (SCRFD-10GF at det_size (512, 512),
       ``CropConfig``'s threshold 0.1) and ``ArcFaceRunner`` (3, 4, 23, 3) at
@@ -1767,37 +1801,22 @@ def phase_clip_path(core) -> dict:
     face-sized (CROP_SIDE_RANGE), the frames changed inside the warped mask
     and untouched wherever it is 0, and the exact warp launched 2 times per
     batch with no other kernel."""
-    from canonswap_torch.configs import CropConfig
-    from canonswap_torch.models import parsing as PP
     from canonswap_torch.models import scrfd as S
-    from canonswap_torch.models.arcface import ArcFaceRunner
-    from canonswap_torch.models.landmark import (Landmark106Runner,
-                                                 Landmark203Runner)
     from canonswap_torch.ops.cuda.warp import WARP3D
     from canonswap_torch.ops.detection import decode_scrfd, nms_fixed
     from canonswap_torch.runtime import core as C
-    from canonswap_torch.runtime.cropper import Cropper
-    from canonswap_torch.runtime.face_analysis import (
-        FaceAnalysis, FaceIDCropper, source_id)
+    from canonswap_torch.runtime.face_analysis import source_id
     from canonswap_torch.utils import geometry as G
 
+    core = session.core
     cfg = core.cfg
     dtype = next(core.parameters()).dtype
     n, h, w = SIDECAR_CLIP
-    crop_cfg = CropConfig(dsize=cfg.output_size)  # 512 at CANONICAL
-    t0 = time.perf_counter()
-    fa = FaceAnalysis(lmk106=Landmark106Runner(seed=3),
-                      det_size=CLIP_DET_SIZE, det_thresh=crop_cfg.det_thresh,
-                      seed=0)
-    tracker = Landmark203Runner(seed=1)
-    hold_a_face(fa, tracker)
-    cropper = Cropper(crop_cfg, fa, tracker,
-                      network_input_size=cfg.input_size)
-    id_cropper = FaceIDCropper(fa)
-    arcface = ArcFaceRunner(seed=4)  # (3, 4, 23, 3)
-    parser = PP.FaceParser(PP.SegformerConfig(), seed=0,
-                           output_size=cfg.output_size)
-    init_s = time.perf_counter() - t0
+    crop_cfg = session.crop_cfg  # the 512 crop at CANONICAL
+    fa, cropper = session.face_analysis, session.cropper
+    id_cropper, arcface = session.id_cropper, session.arcface  # (3, 4, 23, 3)
+    parser = session.parsing
+    init_s = session.init_s
     clip = seeded_clip(CLIP_SEED)
     source = seeded_clip(CLIP_SOURCE_SEED, (1, h, w))[0]
 
@@ -1934,7 +1953,8 @@ def phase_clip_path(core) -> dict:
          changed_pixels_mask_over_half=inside, mask_zero_pixels=int(
              zero.sum()), changed_pixels=int(moved.sum()),
          out_mean=float(result.mean()))
-    return {"launches": launches, "wall_ms": run["wall_ms"]}
+    return {"launches": launches, "wall_ms": run["wall_ms"],
+            "parts_ms": run["ms"], "result": result}
 
 
 def feathered_disc(side: int) -> np.ndarray:
@@ -2034,6 +2054,339 @@ def phase_clip_card_vs_cpu() -> None:
         raise AssertionError(f"clip card vs CPU: {errs} over {bound}")
 
 
+def phase_tools() -> None:
+    """Whether cv2, PIL and ffmpeg are on this machine: the pipelines must
+    not need them (``.ppm`` and ``.npy`` need no codec)."""
+    import importlib.util
+    import shutil
+
+    found = {"cv2": importlib.util.find_spec("cv2") is not None,
+             "PIL": importlib.util.find_spec("PIL") is not None,
+             "ffmpeg": shutil.which("ffmpeg") is not None}
+    emit("codec_tools", found=found)
+
+
+class Finite:
+    """Wraps a function of ``runtime/core.py`` for one phase: records
+    whether each float output it returned was finite (the pipelines quantize
+    to uint8, where a NaN would pass unseen)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.calls, self.finite = 0, True
+
+    def __call__(self, *args, **kwargs):
+        out = self.real(*args, **kwargs)
+        for v in out.values() if isinstance(out, dict) else [out]:
+            self.finite &= bool(torch.isfinite(v.float()).all())
+        self.calls += 1
+        return out
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def write_media(d: str, n_frames: int) -> tuple[str, str]:
+    """The clip phases' seeded source frame as a .ppm and the first
+    ``n_frames`` of their 720p clip as a .npy in ``d``."""
+    from canonswap_torch.utils import io as IO
+
+    src = f"{d}/src.ppm"
+    IO.save_image_rgb(src, seeded_clip(CLIP_SOURCE_SEED,
+                                       (1, *SIDECAR_CLIP[1:]))[0])
+    clip = f"{d}/clip{n_frames}.npy"
+    np.save(clip, seeded_clip(CLIP_SEED)[:n_frames])
+    return src, clip
+
+
+def phase_pipeline_swap(session, clip_run: dict, d: str) -> dict:
+    """``swap_e2e.execute``, the user's swap, at CANONICAL bf16 exact with
+    the full-width sidecars (``clip_session``) on the 16-frame seeded 720p
+    clip as a .npy and its source frame as a .ppm: twice, the first run
+    dumps the motion template and the second loads it.  The second is
+    timed (StageTimer's parts, each ending in a synchronize) with its peak
+    memory.  Hard checks: both outputs, 16 x (720, 1280, 3) and 16 x (512,
+    2048, 3) uint8; the template dumped; the second run's frames equal the
+    first's bit for bit (the same operations on the same inputs: the
+    template holds the first run's f32 motion, read back exactly); the
+    frames equal ``clip_path``'s bit for bit (the same session, inputs and
+    operations; the debug strips run beside them); pixels changed where
+    the warped mask is >= 0.5 and none where it is 0; the exact warp
+    launched 2 times per batch of 8 and no other kernel."""
+    import os
+
+    from canonswap_torch.configs import ArgumentConfig
+    from canonswap_torch.pipelines import swap_e2e
+    from canonswap_torch.utils import geometry as G
+    from canonswap_torch.utils.timing import StageTimer
+
+    n, h, w = SIDECAR_CLIP
+    src, clip_path = write_media(d, n)
+    args = ArgumentConfig(source=src, driving=clip_path,
+                          output_dir=f"{d}/out")
+    crops = {}
+    real_crop = session.cropper.crop_source_video
+
+    def recorded(frames):
+        crops.update(real_crop(frames))
+        return crops
+
+    session.cropper.crop_source_video = recorded
+    runs = []
+    try:
+        for i in range(2):
+            timer = StageTimer()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            paths = swap_e2e.execute(session, args, timer=timer)
+            wall = (time.perf_counter() - t0) * 1e3
+            runs.append({"wall_ms": wall, "launches": launch_counts(),
+                         "peak": torch.cuda.max_memory_allocated(),
+                         "parts_ms": {k: v * 1e3 for k, v
+                                      in timer.totals.items()},
+                         "report": timer.report(),
+                         "out": [np.load(p) for p in paths]})
+            if i == 0:
+                template = os.path.exists(clip_path[:-4] + ".pkl")
+    finally:
+        session.cropper.crop_source_video = real_crop
+    result, concat = runs[1]["out"]
+    side = session.model_cfg.output_size
+    batches = n // CLIP_BATCH
+    with torch.inference_mode():
+        mask = torch.cat([
+            torch.stack([G.prepare_paste_back(
+                m, crops["M_c2o_lst"][lo + j], (w, h), if_float=True)[..., 0]
+                for j, m in enumerate(session.parse_masks(torch.stack(
+                    crops["frame_crop_lst"][lo:lo + CLIP_BATCH])))])
+            for lo in range(0, n, CLIP_BATCH)]).cpu().numpy()
+    frames = seeded_clip(CLIP_SEED)
+    moved = (result != frames).any(-1)
+    zero = mask <= 0
+    inside, outside = int(moved[mask >= 0.5].sum()), int(moved[zero].sum())
+    same_runs = all(np.array_equal(a, b)
+                    for a, b in zip(runs[0]["out"], runs[1]["out"]))
+    vs_clip = np.abs(result.astype(int) - clip_run["result"].astype(int))
+    wall = runs[1]["wall_ms"]
+    emit("pipeline_swap", entry="swap_e2e.execute", clip=list(SIDECAR_CLIP),
+         batch=CLIP_BATCH, generator="CANONICAL bf16 exact",
+         session_init_s=session.init_s,
+         walls_ms=[r["wall_ms"] for r in runs], wall_ms=wall,
+         frames_per_s=n / (wall / 1e3), clip_path_wall_ms=clip_run["wall_ms"],
+         clip_path_parts_ms=clip_run["parts_ms"],
+         parts_ms=runs[1]["parts_ms"], cold_parts_ms=runs[0]["parts_ms"],
+         max_memory_allocated=runs[1]["peak"],
+         launches=[list(r["launches"]) for r in runs],
+         launches_order=list(KERNEL_NAMES), template_dumped=template,
+         result_shape=list(result.shape), concat_shape=list(concat.shape),
+         second_run_equal=same_runs,
+         vs_clip_path_max_diff=int(vs_clip.max()),
+         vs_clip_path_values_differ=int((vs_clip > 0).sum()),
+         changed_pixels_mask_over_half=inside, mask_zero_pixels=int(
+             zero.sum()), changed_pixels=int(moved.sum()))
+    print(runs[1]["report"], flush=True)
+    if (result.shape != (n, h, w, 3) or concat.shape != (n, side, 4 * side, 3)
+            or result.dtype != np.uint8 or concat.dtype != np.uint8):
+        raise AssertionError(f"pipeline_swap: outputs {result.shape} "
+                             f"{result.dtype}, {concat.shape}")
+    if not template:
+        raise AssertionError("pipeline_swap: no motion template dumped")
+    if not same_runs:
+        raise AssertionError("pipeline_swap: the run from the template "
+                             "differs from the first")
+    if vs_clip.max() > 0:
+        raise AssertionError(f"pipeline_swap: {int((vs_clip > 0).sum())} "
+                             f"values differ from clip_path's, by up to "
+                             f"{int(vs_clip.max())}")
+    if not zero.any() or inside == 0 or outside:
+        raise AssertionError(
+            f"pipeline_swap: {inside} pixels changed where the mask is "
+            f">= 0.5, {outside} where it is 0")
+    if any(r["launches"] != only(warp3d=2 * batches) for r in runs):
+        raise AssertionError(f"pipeline_swap: launches "
+                             f"{[r['launches'] for r in runs]}")
+    return {"launches": runs[1]["launches"][0], "wall_ms": wall}
+
+
+def phase_pipeline_v2i_multi(session, d: str) -> dict:
+    """``swap_v2i.execute`` on the seeded source and the clip's first 8
+    frames, and ``swap_multi.execute`` on the 16-frame clip, through the
+    same session.  Hard checks: the outputs' shapes; every float the
+    generator returned finite (``Finite``); pixels changed; the exact warp's
+    launches (v2i: 1 for the source's canonical warp and 1 per batch of
+    re-animation; multi: 2 per batch per face) and no other kernel; with
+    cv2 hidden, a .mp4 driving file raises an ImportError that names it."""
+    from canonswap_torch.configs import ArgumentConfig
+    from canonswap_torch.pipelines import swap_e2e, swap_multi, swap_v2i
+    from canonswap_torch.runtime import core as C
+    from canonswap_torch.utils import io as IO
+
+    n, h, w = SIDECAR_CLIP
+    src, clip16 = f"{d}/src.ppm", f"{d}/clip{n}.npy"
+    _, clip8 = write_media(d, CLIP_BATCH)
+    source = IO.load_image_rgb(src)
+    out = {}
+    with Finite(C, "reanimate_step") as fin_v2i, \
+            Finite(C, "conv_decode") as fin_can:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        paths = swap_v2i.execute(session, ArgumentConfig(
+            source=src, driving=clip8, output_dir=f"{d}/v2i"))
+        out["v2i_ms"] = (time.perf_counter() - t0) * 1e3
+        out["v2i_launches"] = launch_counts()
+    res, concat = (np.load(p) for p in paths)
+    side = session.model_cfg.output_size
+    cans = [IO.load_image_rgb(f"{d}/v2i/{k}.ppm")
+            for k in ("source_can", "swap_can")]
+    faces = session.face_analysis.get(seeded_clip(CLIP_SEED)[0])
+    with Finite(C, "swap_step") as fin_multi:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        multi = np.load(swap_multi.execute(session, ArgumentConfig(
+            source=src, driving=clip16, output_dir=f"{d}/multi")))
+        out["multi_ms"] = (time.perf_counter() - t0) * 1e3
+        out["multi_launches"] = launch_counts()
+    faces_n = min(len(faces), 4)
+    # a .mp4 driving file without cv2 (hidden here where it is installed)
+    with open(f"{d}/clip.mp4", "wb") as f:
+        f.write(b"\0" * 64)
+    mp4_error, cv2_module = None, sys.modules.get("cv2")
+    sys.modules["cv2"] = None  # import cv2 now raises ImportError
+    try:
+        swap_e2e.execute(session, ArgumentConfig(
+            source=src, driving=f"{d}/clip.mp4", output_dir=f"{d}/mp4"))
+    except ImportError as e:
+        mp4_error = str(e)
+    finally:
+        if cv2_module is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = cv2_module
+    frames = seeded_clip(CLIP_SEED)
+    emit("pipeline_v2i_multi", entry="swap_v2i.execute, swap_multi.execute",
+         v2i_frames=CLIP_BATCH, v2i_ms=out["v2i_ms"],
+         v2i_result_shape=list(res.shape), v2i_concat_shape=list(
+             concat.shape), can_shapes=[list(c.shape) for c in cans],
+         v2i_changed_pixels=int((res != source).any(-1).sum()),
+         v2i_finite=fin_v2i.finite and fin_can.finite,
+         v2i_launches=list(out["v2i_launches"]), multi_faces=faces_n,
+         multi_ms=out["multi_ms"], multi_shape=list(multi.shape),
+         multi_changed_pixels=int((multi != frames).any(-1).sum()),
+         multi_finite=fin_multi.finite,
+         multi_launches=list(out["multi_launches"]),
+         launches_order=list(KERNEL_NAMES), mp4_without_cv2=mp4_error)
+    if (res.shape != (CLIP_BATCH, h, w, 3)
+            or concat.shape != (CLIP_BATCH, side, 2 * side, 3)
+            or any(c.shape != (side, side, 3) for c in cans)
+            or multi.shape != (n, h, w, 3)):
+        raise AssertionError("pipeline_v2i_multi: output shapes")
+    if not (fin_v2i.finite and fin_can.finite and fin_multi.finite
+            and fin_v2i.calls == 1 and fin_multi.calls == 2 * faces_n):
+        raise AssertionError("pipeline_v2i_multi: a non-finite output")
+    if not ((res != source).any() and (multi != frames).any()):
+        raise AssertionError("pipeline_v2i_multi: no pixel changed")
+    if (out["v2i_launches"] != only(warp3d=2)
+            or out["multi_launches"] != only(warp3d=4 * faces_n)):
+        raise AssertionError(f"pipeline_v2i_multi: launches {out}")
+    if not (mp4_error and "clip.mp4" in mp4_error):
+        raise AssertionError("pipeline_v2i_multi: a .mp4 without cv2 did "
+                             f"not raise naming the file: {mp4_error}")
+    return {"launches": out["v2i_launches"][0] + out["multi_launches"][0]}
+
+
+def phase_pipeline_stream_fast(d: str) -> dict:
+    """``streaming.execute`` with the fast bundle's flags
+    (``dense_motion_scale=2, flag_int8=True``) on the 16-frame clip, in a
+    session of its own (``clip_session``): twice, the second timed with
+    StageTimer's report.  Hard checks: 16 (720, 1280, 3) frames, pixels
+    changed, and per batch exactly 0 / 2 / 86 launches of the exact warp,
+    the W8A8 warp and the W8A8 conv (and no other kernel)."""
+    from canonswap_torch.configs import ArgumentConfig
+    from canonswap_torch.pipelines import streaming
+    from canonswap_torch.utils.timing import StageTimer
+
+    n, h, w = SIDECAR_CLIP
+    session = clip_session(dense_motion_scale=2, flag_int8=True)
+    per_batch = []
+    real_swap = session.swap_with_motion
+
+    def counted(*args, **kwargs):
+        before = launch_counts()
+        got = real_swap(*args, **kwargs)
+        per_batch.append([a - b for a, b in zip(launch_counts(), before)])
+        return got
+
+    session.swap_with_motion = counted
+    args = ArgumentConfig(source=f"{d}/src.ppm", driving=f"{d}/clip{n}.npy",
+                          output_dir=f"{d}/stream")
+    walls = []
+    for _ in range(2):
+        timer = StageTimer()
+        per_batch.clear()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        path = streaming.execute(session, args, timer=timer)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    res = np.load(path)
+    emit("pipeline_stream_fast", entry="streaming.execute",
+         config="fast_bundle(CANONICAL) bf16", session_init_s=session.init_s,
+         walls_ms=walls, wall_ms=walls[1], frames_per_s=n / (walls[1] / 1e3),
+         parts_ms={k: v * 1e3 for k, v in timer.totals.items()},
+         launches_per_batch=per_batch, launches=list(launches),
+         launches_order=list(KERNEL_NAMES), result_shape=list(res.shape),
+         changed_pixels=int((res != seeded_clip(CLIP_SEED)).any(-1).sum()))
+    want = list(only(warp3d_q=2, qconv=86))
+    if res.shape != (n, h, w, 3) or not (res != seeded_clip(CLIP_SEED)).any():
+        raise AssertionError(f"pipeline_stream_fast: output {res.shape}")
+    if per_batch != [want] * (n // CLIP_BATCH) or launches != only(
+            warp3d_q=2 * n // CLIP_BATCH, qconv=86 * n // CLIP_BATCH):
+        raise AssertionError(f"pipeline_stream_fast: launches per batch "
+                             f"{per_batch}, all {launches}")
+    return {"launches": launches, "wall_ms": walls[1]}
+
+
+def phase_cli_swap(d: str) -> None:
+    """``python -m canonswap_torch.cli.main swap -s src.ppm -t clip8.npy -o
+    out --batch-size 8`` as a subprocess on the card, with the package's
+    seeded weights (no ``hold_a_face``: structure only).  Hard checks: exit
+    0, both outputs with 8 frames of (720, 1280, 3) and (512, 2048, 3), and
+    the pipeline's log lines."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = f"{d}/cli"
+    cmd = [sys.executable, "-m", "canonswap_torch.cli.main", "swap", "-s",
+           f"{d}/src.ppm", "-t", f"{d}/clip{CLIP_BATCH}.npy", "-o", out,
+           "--batch-size", str(CLIP_BATCH)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                          timeout=300)
+    wall = time.perf_counter() - t0
+    stem = f"{out}/src--clip{CLIP_BATCH}"
+    shapes = {k: list(np.load(p).shape) if os.path.exists(p) else None
+              for k, p in (("result", f"{stem}.npy"),
+                           ("concat", f"{stem}_concat.npy"))}
+    lines = ["Get source ID", f"Driving video cropped: {CLIP_BATCH} frames",
+             "Dumped motion template", "Results:"]
+    seen = {line: line in proc.stdout for line in lines}
+    emit("cli_swap", cmd=" ".join(cmd[1:]), rc=proc.returncode, wall_s=wall,
+         shapes=shapes, log_lines=seen, stdout_tail=proc.stdout[-600:],
+         stderr_tail=proc.stderr[-600:])
+    if proc.returncode or shapes != {
+            "result": [CLIP_BATCH, *SIDECAR_CLIP[1:], 3],
+            "concat": [CLIP_BATCH, 512, 2048, 3]} or not all(seen.values()):
+        raise AssertionError(f"cli_swap: rc {proc.returncode}, {shapes}, "
+                             f"{seen}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2056,8 +2409,17 @@ def main() -> int:
     probes = phase_probe_kernels()
     phase_sidecars_path()
     phase_sidecars_card_vs_cpu()
-    clip = phase_clip_path(main_path.pop("core"))
+    session = clip_session()
+    clip = phase_clip_path(session)
     phase_clip_card_vs_cpu()
+    phase_tools()
+    with tempfile.TemporaryDirectory() as d:
+        pipe = phase_pipeline_swap(session, clip, d)
+        v2i_multi = phase_pipeline_v2i_multi(session, d)
+        del session
+        torch.cuda.empty_cache()
+        stream = phase_pipeline_stream_fast(d)
+        phase_cli_swap(d)
     bf16 = timings["smooth_bfloat16"]
     bf16_q = warp_q["timings"]["smooth_bfloat16"]
     adaptive = qconv["timings"]["adaptive"]
@@ -2068,6 +2430,7 @@ def main() -> int:
         "replaces": "canonswap_tpu/ops/pallas/warp.py:378",
         "launches": main_path["launches"],
         "clip_path_launches": clip["launches"][0],
+        "pipeline_launches": pipe["launches"] + v2i_multi["launches"],
         "max_abs_err": bf16["max_abs_err"],
         "ms": float(np.median(bf16["kernel_ms"])),
         "plain_ms": float(np.median(bf16["plain_ms"])),
@@ -2078,6 +2441,7 @@ def main() -> int:
         "source": "canonswap_torch/csrc/warp3d_q.cu",
         "replaces": "canonswap_tpu/ops/pallas/warp.py:71",
         "launches": fast["launches"][1],
+        "stream_launches": stream["launches"][1],
         "max_abs_err": warp_q["worst"],
         "ms": float(np.median(bf16_q["kernel_ms"])),
         "plain_ms": float(np.median(bf16_q["plain_ms"])),
@@ -2089,6 +2453,7 @@ def main() -> int:
         "source": "canonswap_torch/csrc/qconv.cu",
         "replaces": "canonswap_tpu/ops/pallas/qconv.py:107",
         "launches": fast["launches"][2],
+        "stream_launches": stream["launches"][2],
         "max_abs_err": qconv["worst"],
         "ms": float(np.median(adaptive["kernel_ms"])),
         "plain_ms": adaptive["plain_f64_ms"],

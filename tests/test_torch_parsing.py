@@ -127,8 +127,13 @@ def test_bilinear_resize_matches_jax_when_upsampling(shape, size):
 
 
 def test_bilinear_resize_refuses_a_downsample():
-    with pytest.raises(ValueError, match="upsamples only"):
-        bilinear_resize(torch.zeros((1, 1, 16, 16)), (8, 32))
+    """A size that shrinks one side no longer raises: it antialiases there,
+    as ``jax.image.resize`` does (down in height, up in width here)."""
+    x = rng(13).standard_normal((1, 2, 16, 16), dtype=np.float32)
+    want = jax_bilinear_resize(jnp.asarray(np.moveaxis(x, 1, -1)), (8, 32))
+    got = bilinear_resize(t(x), (8, 32))
+    np.testing.assert_allclose(np.moveaxis(got.numpy(), 1, -1), want,
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_preprocess_matches_jax():

@@ -117,26 +117,53 @@ def test_reference_checkpoint_missing_a_network_raises(core):
         load_reference_checkpoint(ckpt)
 
 
+def _imported(node) -> list[str]:
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    if isinstance(node, ast.ImportFrom):
+        return [node.module or ""]
+    return []
+
+
+def _module_level(body):
+    """The statements that run when the module is imported: the top level,
+    with the bodies of top-level if / try / with blocks."""
+    for node in body:
+        yield node
+        if isinstance(node, (ast.If, ast.Try, ast.With)):
+            for field in ("body", "orelse", "finalbody"):
+                yield from _module_level(getattr(node, field, []))
+            for handler in getattr(node, "handlers", []):
+                yield from _module_level(handler.body)
+
+
 def test_port_sources_import_nothing_of_jax():
     """A source scan of every module of the port, the checkpoint loader's
-    included: no import of jax, flax or the JAX package."""
+    included: no import of jax, flax or the JAX package anywhere; and no
+    import of cv2, PIL or rich when a module is imported (the card's
+    machine has none of them: the port imports cv2 where a codec format
+    needs it, rich where it logs)."""
     banned = ("jax", "flax", "canonswap_tpu")
+    not_at_import = ("cv2", "PIL", "rich")
     files = sorted((REPO / "canonswap_torch").rglob("*.py"))
     for name in ("runtime/weights.py", "runtime/face_analysis.py",
                  "runtime/cropper.py", "models/scrfd.py", "models/arcface.py",
                  "ops/detection.py", "utils/face_align.py",
-                 "utils/smoothing.py"):
+                 "utils/smoothing.py", "utils/io.py", "utils/video.py",
+                 "utils/ratios.py", "utils/rlog.py", "utils/timing.py",
+                 "utils/helper.py", "pipelines/session.py",
+                 "pipelines/swap_e2e.py", "pipelines/swap_v2i.py",
+                 "pipelines/swap_multi.py", "pipelines/streaming.py",
+                 "cli/main.py"):
         assert REPO / "canonswap_torch" / name in files
     for path in files:
-        for node in ast.walk(ast.parse(path.read_text(), str(path))):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            else:
-                continue
-            for name in names:
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            for name in _imported(node):
                 assert name.split(".")[0] not in banned, (path, name)
+        for node in _module_level(tree.body):
+            for name in _imported(node):
+                assert name.split(".")[0] not in not_at_import, (path, name)
 
 
 def test_seeded_init(core):
