@@ -7,12 +7,14 @@ bundle's options are here: ``WarpingConfig.dense_motion_scale`` and the
 ``int8_conv`` flags of appearance, swap and SPADE, with the JAX names, plus
 ``WarpingConfig.warp_quant``, the port's name for the JAX ``warp_impl``
 value ``"pallas_quant"`` (the W8A8 warp); :func:`fast_bundle` sets them as
-the JAX session does.  The JAX package's TPU layouts and backends have no
-counterpart here, nor have the options the fast bundle leaves off
-(``DenseMotionConfig.int8_conv``, ``SpadeConfig.norm_scale``,
-``spectral_norm``) or that select another network than the shipped
-checkpoint's: the port always estimates the occlusion map and always ends
-the decoder in the 2x pixel-shuffle head (``upscale=2``).
+the JAX session does.  ``SpadeConfig.spectral_norm`` is the live spectral
+norm for training from scratch (``nn/spectral.py``) and
+:class:`StitchingConfig` the retargeting nets' sizes.  The JAX package's TPU
+layouts and backends have no counterpart here, nor have the options the
+fast bundle leaves off (``DenseMotionConfig.int8_conv``,
+``SpadeConfig.norm_scale``) or that select another network than the
+shipped checkpoint's: the port always estimates the occlusion map and
+always ends the decoder in the 2x pixel-shuffle head (``upscale=2``).
 
 :class:`ArgumentConfig` (the CLI), :class:`InferenceConfig` (the
 session), :class:`CropConfig` (the Cropper) and :func:`partial_fields` are
@@ -75,6 +77,9 @@ class SpadeConfig:
     max_features: int = 512
     num_down_blocks: int = 2
     out_channels: int = 64
+    # live power-iteration spectral norm on the SPADE blocks' convs
+    # (training from scratch); converted checkpoints have it baked in
+    spectral_norm: bool = False
     int8_conv: bool = False  # W8A8 convs of G_middle_* and up_0, gated
 
 
@@ -88,12 +93,23 @@ class SwapConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class StitchingConfig:
+    # (input_size, hidden_sizes, output_size) per sub-net, models.yaml:31-43;
+    # the input and output sizes are those of num_kp = 21
+    stitching: tuple = (126, (128, 128, 64), 65)
+    lip: tuple = (65, (128, 128, 64), 63)
+    eye: tuple = (66, (256, 256, 128, 128, 64), 63)
+
+
+@dataclasses.dataclass(frozen=True)
 class CanonSwapModelConfig:
     appearance: AppearanceConfig = dataclasses.field(default_factory=AppearanceConfig)
     motion: MotionConfig = dataclasses.field(default_factory=MotionConfig)
     warping: WarpingConfig = dataclasses.field(default_factory=WarpingConfig)
     spade: SpadeConfig = dataclasses.field(default_factory=SpadeConfig)
     swap: SwapConfig = dataclasses.field(default_factory=SwapConfig)
+    stitching: StitchingConfig = dataclasses.field(
+        default_factory=StitchingConfig)
     input_size: int = 256  # model input crop
     output_size: int = 512
 
@@ -201,7 +217,7 @@ class InferenceConfig:
     flag_eye_retargeting: bool = False
     flag_lip_retargeting: bool = False
     # stitching is off by default, as the reference's entry points force it
-    # (inference_canswap.py:56); on, the session raises (not in the port)
+    # (inference_canswap.py:56)
     flag_stitching: bool = False
     flag_relative_motion: bool = False  # unsupported: the session raises
     flag_pasteback: bool = True
@@ -218,8 +234,8 @@ class InferenceConfig:
 
     batch_size: int = 8
     checkpoint: Optional[str] = None
-    # the stitching/retargeting checkpoint, for flag_stitching /
-    # flag_*_retargeting (not in the port)
+    # the stitching/retargeting checkpoint (.pth or .npz), for
+    # flag_stitching / flag_*_retargeting
     stitching_checkpoint: Optional[str] = None
     # >1 estimates the dense deformation field at 1/N in-plane resolution
     # (exact at 1; the speed/quality knob)

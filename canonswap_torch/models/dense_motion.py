@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from canonswap_torch.configs import DenseMotionConfig
-from canonswap_torch.nn.blocks import Hourglass
+from canonswap_torch.nn.blocks import BatchNorm3d, Hourglass
 from canonswap_torch.ops.grid_sample import axis_resample_matrix
 from canonswap_torch.ops.heatmap import kp2gaussian, make_coordinate_grid_3d
 from canonswap_torch.ops.resize import avg_pool, volume_to_2d
@@ -73,7 +73,7 @@ class DenseMotionNetwork(nn.Module):
         self.num_blocks = cfg.num_blocks
         self.field_scale = field_scale
         self.compress = nn.Conv3d(feature_channel, cfg.compress, 1)
-        self.norm = nn.BatchNorm3d(cfg.compress)
+        self.norm = BatchNorm3d(cfg.compress)
         self.hourglass = Hourglass(
             cfg.block_expansion, (num_kp + 1) * (cfg.compress + 1),
             cfg.num_blocks, cfg.max_features)

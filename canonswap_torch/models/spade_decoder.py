@@ -2,7 +2,8 @@
 
 Port of ``canonswap_tpu/models/spade_decoder.py``: (B, 256, 64, 64) ->
 (B, 3, 512, 512) at CANONICAL.  The input feature is the SPADE segmap of
-every block; spectral norm is baked into the converted conv weights.
+every block; spectral norm is baked into the converted conv weights, or
+applied live under ``SpadeConfig.spectral_norm`` (training from scratch).
 ``SpadeConfig.int8_conv`` makes the middle blocks and ``up_0`` W8A8 where
 their gates hold; ``up_1`` (at 4x the segmap's size) stays exact, as in the
 JAX package.
@@ -24,12 +25,12 @@ class SPADEDecoder(nn.Module):
         super().__init__()
         ic = min(cfg.max_features, cfg.block_expansion * 2**cfg.num_down_blocks)
         self.fc = nn.Conv2d(ic, 2 * ic, 3, padding=1)
-        q = cfg.int8_conv
+        q, sn = cfg.int8_conv, cfg.spectral_norm
         for i in range(6):
             setattr(self, f"G_middle_{i}",
-                    SPADEResnetBlock(2 * ic, 2 * ic, ic, q))
-        self.up_0 = SPADEResnetBlock(2 * ic, ic, ic, q)
-        self.up_1 = SPADEResnetBlock(ic, cfg.out_channels, ic)
+                    SPADEResnetBlock(2 * ic, 2 * ic, ic, q, sn))
+        self.up_0 = SPADEResnetBlock(2 * ic, ic, ic, q, sn)
+        self.up_1 = SPADEResnetBlock(ic, cfg.out_channels, ic, sn=sn)
         self.conv_img = nn.Sequential(
             nn.Conv2d(cfg.out_channels, 3 * 4, 3, padding=1),
             nn.PixelShuffle(2))

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from canonswap_torch.nn.spectral import SNConv2d
 from canonswap_torch.ops.qconv import conv_w8a8, int8_worthwhile
 from canonswap_torch.ops.resize import avg_pool, nearest_upsample
 
@@ -38,6 +39,32 @@ def conv_int8(conv: nn.Conv2d | nn.Conv3d, x: torch.Tensor,
     return conv_w8a8(x, conv.weight, conv.bias) if int8 else conv(x)
 
 
+class _TrainableStats:
+    """BatchNorm in eval mode whose running statistics may take gradients.
+    The JAX trainer differentiates its whole variable tree, flax's
+    batch_stats included (they enter the eval-mode normalization), and Adam
+    updates them; PyTorch's batch_norm refuses statistics that require
+    grad.  So where they do, the normalization is written out as flax
+    computes it: (x - mean) * (scale * rsqrt(var + eps)) + bias."""
+
+    def forward(self, x):
+        if self.training or not (torch.is_grad_enabled()
+                                 and self.running_var.requires_grad):
+            return super().forward(x)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return ((x - self.running_mean.view(shape)) * mul.view(shape)
+                + self.bias.view(shape))
+
+
+class BatchNorm2d(_TrainableStats, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_TrainableStats, nn.BatchNorm3d):
+    pass
+
+
 class SameBlock2d(nn.Module):
     """Conv3x3 -> BN -> ReLU (or LeakyReLU 0.01), resolution kept."""
 
@@ -45,7 +72,7 @@ class SameBlock2d(nn.Module):
                  lrelu: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(in_features, out_features, 3, padding=1)
-        self.norm = nn.BatchNorm2d(out_features)
+        self.norm = BatchNorm2d(out_features)
         self.lrelu = lrelu
 
     def forward(self, x):
@@ -59,7 +86,7 @@ class DownBlock2d(nn.Module):
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
         self.conv = nn.Conv2d(in_features, out_features, 3, padding=1)
-        self.norm = nn.BatchNorm2d(out_features)
+        self.norm = BatchNorm2d(out_features)
 
     def forward(self, x):
         return avg_pool(F.relu(self.norm(self.conv(x))), (2, 2))
@@ -71,7 +98,7 @@ class DownBlock3d(nn.Module):
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
         self.conv = nn.Conv3d(in_features, out_features, 3, padding=1)
-        self.norm = nn.BatchNorm3d(out_features)
+        self.norm = BatchNorm3d(out_features)
 
     def forward(self, x):
         return avg_pool(F.relu(self.norm(self.conv(x))), (1, 2, 2))
@@ -83,7 +110,7 @@ class UpBlock3d(nn.Module):
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
         self.conv = nn.Conv3d(in_features, out_features, 3, padding=1)
-        self.norm = nn.BatchNorm3d(out_features)
+        self.norm = BatchNorm3d(out_features)
 
     def forward(self, x):
         x = nearest_upsample(x, (1, 2, 2))
@@ -96,9 +123,9 @@ class ResBlock2d(nn.Module):
 
     def __init__(self, features: int, int8: bool = False):
         super().__init__()
-        self.norm1 = nn.BatchNorm2d(features)
+        self.norm1 = BatchNorm2d(features)
         self.conv1 = nn.Conv2d(features, features, 3, padding=1)
-        self.norm2 = nn.BatchNorm2d(features)
+        self.norm2 = BatchNorm2d(features)
         self.conv2 = nn.Conv2d(features, features, 3, padding=1)
         self.int8 = int8
 
@@ -115,9 +142,9 @@ class ResBlock3d(nn.Module):
 
     def __init__(self, features: int, int8: bool = False):
         super().__init__()
-        self.norm1 = nn.BatchNorm3d(features)
+        self.norm1 = BatchNorm3d(features)
         self.conv1 = nn.Conv3d(features, features, 3, padding=1)
-        self.norm2 = nn.BatchNorm3d(features)
+        self.norm2 = BatchNorm3d(features)
         self.conv2 = nn.Conv3d(features, features, 3, padding=1)
         self.int8 = int8
 
@@ -182,7 +209,7 @@ class HourglassDecoder(nn.Module):
         self.up_blocks = nn.ModuleList(blocks)
         self.out_filters = block_expansion + in_features
         self.conv = nn.Conv3d(self.out_filters, self.out_filters, 3, padding=1)
-        self.norm = nn.BatchNorm3d(self.out_filters)
+        self.norm = BatchNorm3d(self.out_filters)
 
     def forward(self, feats):
         feats = list(feats)
@@ -244,26 +271,37 @@ class SPADE(nn.Module):
 
 
 class SPADEResnetBlock(nn.Module):
-    """SPADE residual block; spectral norm is baked into the conv weights.
-    ``int8``: ``conv_0``, ``conv_1`` and ``conv_s`` W8A8 each where
-    :func:`int8_worthwhile` holds for its input, and the SPADEs' int8."""
+    """SPADE residual block; spectral norm is baked into the conv weights,
+    or with ``sn`` applied live (``nn/spectral.py``; the same parameter
+    names, which takes precedence over int8 for the convs, as in the JAX
+    block).  ``int8``: ``conv_0``, ``conv_1`` and ``conv_s`` W8A8 each
+    where :func:`int8_worthwhile` holds for its input, and the SPADEs'
+    int8."""
 
     def __init__(self, fin: int, fout: int, label_nc: int,
-                 int8: bool = False):
+                 int8: bool = False, sn: bool = False):
         super().__init__()
         fmiddle = min(fin, fout)
         self.learned_shortcut = fin != fout
         self.int8 = int8
-        self.conv_0 = nn.Conv2d(fin, fmiddle, 3, padding=1)
-        self.conv_1 = nn.Conv2d(fmiddle, fout, 3, padding=1)
+        self.sn = sn
+
+        def conv(cin, cout, k, bias=True):
+            if sn:
+                return SNConv2d(cin, cout, k, bias=bias)
+            return nn.Conv2d(cin, cout, k, padding=k // 2, bias=bias)
+
+        self.conv_0 = conv(fin, fmiddle, 3)
+        self.conv_1 = conv(fmiddle, fout, 3)
         self.norm_0 = SPADE(fin, label_nc, int8)
         self.norm_1 = SPADE(fmiddle, label_nc, int8)
         if self.learned_shortcut:
-            self.conv_s = nn.Conv2d(fin, fout, 1, bias=False)
+            self.conv_s = conv(fin, fout, 1, bias=False)
             self.norm_s = SPADE(fin, label_nc, int8)
 
     def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-        return conv_int8(conv, x, self.int8 and int8_worthwhile(x))
+        return conv_int8(conv, x, self.int8 and not self.sn
+                         and int8_worthwhile(x))
 
     def forward(self, x, seg):
         if self.learned_shortcut:

@@ -8,7 +8,8 @@ Every parameter and buffer gets a value from one ``torch.Generator``, in
 - norm affines (BatchNorm, GroupNorm, LayerNorm): weight 1 + N(0, 0.1^2),
   bias N(0, 0.1^2); BatchNorm running mean N(0, 0.1^2), running var
   U(0.5, 1.5);
-- GRN gamma / beta: N(0, 0.1^2).
+- GRN gamma / beta: N(0, 0.1^2);
+- live spectral norm's ``u``: a unit vector in a random direction.
 
 Norm statistics and affines are random on purpose, so that a parity test
 against another implementation exercises them.
@@ -22,6 +23,7 @@ import torch
 from torch import nn
 
 from canonswap_torch.nn.convnext import GRN
+from canonswap_torch.nn.spectral import SNConv2d
 
 _NORMS = (nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d, nn.GroupNorm,
           nn.LayerNorm)
@@ -41,6 +43,9 @@ def _value(module: nn.Module, name: str, shape, gen) -> torch.Tensor | None:
         return None  # num_batches_tracked
     if isinstance(module, GRN):
         return normal(0.1)
+    if isinstance(module, SNConv2d) and name == "u":
+        u = normal(1.0)
+        return u / torch.linalg.vector_norm(u)
     if len(shape) >= 2:
         return normal(1.0 / math.sqrt(math.prod(shape[1:])))
     return normal(0.05)

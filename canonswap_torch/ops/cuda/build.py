@@ -142,6 +142,18 @@ class CudaKernel:
             f"{self.symbol} failed to launch: CUDA error {err} {msg}")
 
 
+def forbid_grad(op: str, *tensors) -> None:
+    """Raise where a kernel without a backward would cut autograd: under
+    grad mode, on an input that requires grad."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{op} has no backward: the JAX trainer runs with the int8 "
+            "flags off (the exact warp, whose backward is a kernel) and "
+            "XPose is inference only; call it under torch.no_grad() or "
+            "on inputs that do not require grad")
+
+
 def build_all(kernels) -> None:
     """Build the kernels whose libraries are missing, one nvcc process per
     source (kernels that share a source share its build), all started at

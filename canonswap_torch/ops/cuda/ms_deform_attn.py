@@ -30,7 +30,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from canonswap_torch.ops.cuda.build import CudaKernel
+from canonswap_torch.ops.cuda.build import CudaKernel, forbid_grad
 
 _c_int = ctypes.c_int
 _c_ptr = ctypes.c_void_p
@@ -152,7 +152,10 @@ def _refuse(value, spatial_shapes, loc, weights) -> None:
 def ms_deform_attn_cuda(value: torch.Tensor, spatial_shapes,
                         sampling_locations: torch.Tensor,
                         attention_weights: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel (all three tensors on one card, f32)."""
+    """Launch the CUDA kernel (all three tensors on one card, f32).  It has
+    no backward: raises under grad on an input that requires it."""
+    forbid_grad("ms_deform_attn", value, sampling_locations,
+                attention_weights)
     _, table, rows = _levels(spatial_shapes)
     if not _fits(value, len(spatial_shapes), rows, sampling_locations,
                  attention_weights):

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from canonswap_torch.ops.cuda.build import CudaKernel
+from canonswap_torch.ops.cuda.build import CudaKernel, forbid_grad
 
 _c_int = ctypes.c_int
 _c_ptr = ctypes.c_void_p
@@ -60,7 +60,9 @@ def check_args(x: torch.Tensor, weight: torch.Tensor,
 
 def conv_w8a8_cuda(x: torch.Tensor, weight: torch.Tensor,
                    bias: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel (x, weight and bias on one card)."""
+    """Launch the CUDA kernel (x, weight and bias on one card).  It has no
+    backward: raises under grad on an input that requires it."""
+    forbid_grad("qconv (the W8A8 conv)", x, weight, bias)
     check_args(x, weight, bias)
     tensors = (x, weight) if bias is None else (x, weight, bias)
     if not all(t.is_cuda and t.device == x.device for t in tensors):

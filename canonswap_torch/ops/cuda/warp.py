@@ -10,6 +10,11 @@ an int8 copy laid out channels last.
 
 Device rule: a CPU volume goes to :func:`grid_sample_3d_plain`; a CUDA volume
 launches the kernel or raises.  Nothing falls back.
+
+Gradients: the exact warp on the card is an autograd function whose backward
+is the kernel ``warp3d_backward`` (same source, f32 only; the JAX trainer
+runs in f32).  The W8A8 warp has no backward and raises under grad, as the
+other int8 kernels do: the JAX package never differentiates them.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from canonswap_torch.ops.cuda.build import CudaKernel
+from canonswap_torch.ops.cuda.build import CudaKernel, forbid_grad
 from canonswap_torch.ops.quant import INV127, quantize, sample_step
 
 _c_int = ctypes.c_int
@@ -29,6 +34,11 @@ WARP3D = CudaKernel(
     "warp3d.cu", "warp3d_forward",
     [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int,
      _c_int, _c_int, _c_int, _c_ptr],
+)
+
+WARP3D_BWD = CudaKernel(
+    "warp3d.cu", "warp3d_backward",
+    [_c_ptr] * 5 + [_c_int] * 6 + [_c_ptr],
 )
 
 WARP3D_Q = CudaKernel(
@@ -74,19 +84,99 @@ def _check_cuda_args(vol: torch.Tensor, grid: torch.Tensor) -> None:
         raise ValueError("warp3d: a plane or point count over 2**31")
 
 
-def grid_sample_3d_cuda(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on ``vol`` / ``grid`` (both on one card)."""
-    _check_cuda_args(vol, grid)
+def _launch_forward(vol: torch.Tensor, grid: torch.Tensor,
+                    out: torch.Tensor) -> None:
     b, c, d, h, w = vol.shape
-    do, ho, wo = grid.shape[1:4]
-    p = do * ho * wo
-    out = torch.empty((b, c, do, ho, wo), dtype=vol.dtype, device=vol.device)
-    if out.numel() == 0:
-        return out
     WARP3D.launch_on(
         vol.device, vol.data_ptr(), grid.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[vol.dtype], _DTYPE_CODE[grid.dtype], b, c, d, h, w, p)
+        _DTYPE_CODE[vol.dtype], _DTYPE_CODE[grid.dtype], b, c, d, h, w,
+        out[0, 0].numel())
+
+
+def _launch_backward(vol: torch.Tensor, grid: torch.Tensor,
+                     grad_out: torch.Tensor, grad_vol: torch.Tensor,
+                     grad_grid: torch.Tensor) -> None:
+    b, c, d, h, w = vol.shape
+    WARP3D_BWD.launch_on(
+        vol.device, vol.data_ptr(), grid.data_ptr(), grad_out.data_ptr(),
+        grad_vol.data_ptr(), grad_grid.data_ptr(), b, c, d, h, w,
+        grad_out[0, 0].numel())
+
+
+def _forward(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    b, c = vol.shape[:2]
+    out = torch.empty((b, c, *grid.shape[1:4]), dtype=vol.dtype,
+                      device=vol.device)
+    if out.numel():
+        _launch_forward(vol, grid, out)
     return out
+
+
+def warp3d_backward_cuda(vol: torch.Tensor, grid: torch.Tensor,
+                         grad_out: torch.Tensor):
+    """Launch the backward kernel: (grad_vol, grad_grid) of the warp at
+    ``vol`` / ``grid`` for ``grad_out`` (B, C, Do, Ho, Wo), all f32 and
+    contiguous on one card.  grad_vol is accumulated into zeros."""
+    _check_cuda_args(vol, grid)
+    if any(t.dtype != torch.float32 for t in (vol, grid, grad_out)):
+        raise TypeError(
+            f"warp3d_backward takes float32 only, got vol {vol.dtype}, grid "
+            f"{grid.dtype}, grad_out {grad_out.dtype}")
+    if (tuple(grad_out.shape) != (*vol.shape[:2], *grid.shape[1:4])
+            or grad_out.device != vol.device
+            or not grad_out.is_contiguous()):
+        raise ValueError(
+            f"warp3d_backward wants a contiguous grad_out "
+            f"{(*vol.shape[:2], *grid.shape[1:4])} on {vol.device}, got "
+            f"{tuple(grad_out.shape)} on {grad_out.device}")
+    grad_vol, grad_grid = torch.zeros_like(vol), torch.zeros_like(grid)
+    if grad_out.numel():
+        _launch_backward(vol, grid, grad_out, grad_vol, grad_grid)
+    return grad_vol, grad_grid
+
+
+def warp3d_backward_plain(vol: torch.Tensor, grid: torch.Tensor,
+                          grad_out: torch.Tensor):
+    """The backward kernel's function in plain PyTorch: the autograd
+    gradient of :func:`grid_sample_3d_plain` (``F.grid_sample`` in f32)."""
+    with torch.enable_grad():
+        v = vol.detach().float().requires_grad_()
+        g = grid.detach().float().requires_grad_()
+        out = grid_sample_3d_plain(v, g)
+        return torch.autograd.grad(out, (v, g), grad_out.float())
+
+
+class Warp3d(torch.autograd.Function):
+    """The exact warp on the card with its hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, vol, grid):
+        ctx.save_for_backward(vol, grid)
+        return _forward(vol, grid)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        vol, grid = ctx.saved_tensors
+        grad_vol, grad_grid = warp3d_backward_cuda(
+            vol, grid, grad_out.contiguous())
+        return (grad_vol if ctx.needs_input_grad[0] else None,
+                grad_grid if ctx.needs_input_grad[1] else None)
+
+
+def grid_sample_3d_cuda(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on ``vol`` / ``grid`` (both on one card).
+    Under grad mode with an input that requires grad, the result carries
+    :class:`Warp3d`'s backward (f32 only)."""
+    _check_cuda_args(vol, grid)
+    if torch.is_grad_enabled() and (vol.requires_grad or grid.requires_grad):
+        if vol.dtype != torch.float32 or grid.dtype != torch.float32:
+            raise TypeError(
+                f"warp3d_backward takes float32 only (the JAX trainer runs "
+                f"in f32), got vol {vol.dtype}, grid {grid.dtype} that "
+                f"require grad")
+        return Warp3d.apply(vol, grid)
+    return _forward(vol, grid)
 
 
 def grid_sample_3d(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
@@ -151,7 +241,9 @@ def grid_sample_3d_quant_plain(vol: torch.Tensor,
 
 def grid_sample_3d_quant_cuda(vol: torch.Tensor,
                               grid: torch.Tensor) -> torch.Tensor:
-    """Launch the W8A8 CUDA kernel on ``vol`` / ``grid`` (one card)."""
+    """Launch the W8A8 CUDA kernel on ``vol`` / ``grid`` (one card).
+    It has no backward: raises under grad on an input that requires it."""
+    forbid_grad("warp3d_q (the W8A8 warp)", vol, grid)
     _check_cuda_args(vol, grid)
     b, c, d, h, w = vol.shape
     do, ho, wo = grid.shape[1:4]

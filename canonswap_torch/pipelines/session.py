@@ -4,13 +4,16 @@ The port's counterpart of ``canonswap_tpu/pipelines/session.py`` (the
 reference's CanSwapPipeline.__init__, can_swap_pipeline_e2e.py:39-57): the
 generator core, the Cropper (SCRFD, the 106- and 203-point landmark
 runners), face parsing, the ID cropper and ArcFace, on one device, with the
-JAX session's batched entry points.
+JAX session's batched entry points.  Under ``flag_stitching``,
+``flag_eye_retargeting`` or ``flag_lip_retargeting`` it also holds the
+stitching and retargeting nets (f32), and the swap adjusts the driving
+keypoints (``runtime/core.py::adjust_driving_kp``).
 
 The generator runs in bf16 under ``flag_use_half_precision`` (keypoint math
 stays f32); the sidecars run in f32.  Weights are seeded (no checkpoint
 ships): the components, in the order core, SCRFD, the 203-point tracker,
-the 106-point net, ArcFace, Segformer, take ``seed`` plus
-:data:`SEED_OFFSETS`; at seed 0 these are the seeds ``chip_smoke.py``'s
+the 106-point net, ArcFace, Segformer and the stitching nets, take ``seed``
+plus :data:`SEED_OFFSETS`; at seed 0 these are the seeds ``chip_smoke.py``'s
 clip path has always run.  ``fast_init`` gives zero weights instead, as
 the JAX session's ``eval_shape`` zeros do.
 """
@@ -19,7 +22,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from canonswap_torch.configs import (CANONICAL, CanonSwapModelConfig,
@@ -28,6 +30,8 @@ from canonswap_torch.models import parsing as P
 from canonswap_torch.models.arcface import ArcFaceRunner
 from canonswap_torch.models.landmark import (Landmark106Runner,
                                              Landmark203Runner)
+from canonswap_torch.models.stitching import StitchingModule
+from canonswap_torch.nn.init import init_random_
 from canonswap_torch.runtime import core as C
 from canonswap_torch.runtime.cropper import Cropper
 from canonswap_torch.runtime.device import on_device, resolve_device
@@ -36,7 +40,7 @@ from canonswap_torch.runtime.face_analysis import (FaceAnalysis,
 
 # each component's seed is seed + its offset
 SEED_OFFSETS = {"core": 0, "scrfd": 0, "landmark203": 1, "landmark106": 3,
-                "arcface": 4, "parsing": 0}
+                "arcface": 4, "parsing": 0, "stitching": 6}
 
 
 @torch.no_grad()
@@ -56,12 +60,6 @@ def _model_config(cfg: InferenceConfig,
             "flag_relative_motion is not supported by the e2e swap path "
             "(the reference never consumes it either: it swaps per-frame "
             "absolute motion; see SURVEY.md §2a)")
-    for flag in ("flag_stitching", "flag_eye_retargeting",
-                 "flag_lip_retargeting"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{flag}: stitching and retargeting are not in the port yet "
-                "(ROADMAP A 6)")
     if cfg.debug_nans:
         raise NotImplementedError(
             "debug_nans is not in the port yet (ROADMAP A 8)")
@@ -96,17 +94,10 @@ def load_core_checkpoint(core: C.CanonSwapCore, path: str) -> None:
     alone), into ``core`` with strict keys.  Other formats (the JAX
     package's ``.msgpack``) raise."""
     from canonswap_torch.runtime import weights as W
+    from canonswap_torch.runtime.checkpoint import load_npz
 
     if path.endswith(".npz"):
-        tree: dict = {}
-        with np.load(path) as data:
-            for key in data.files:
-                node = tree
-                *parents, leaf = key.split("/")
-                for p in parents:
-                    node = node.setdefault(p, {})
-                node[leaf] = data[key]
-        sd = W.from_jax(tree)
+        sd = W.from_jax(load_npz(path))
     elif path.endswith(".msgpack"):
         raise ValueError(
             f"{path}: the port reads the reference's combined_weights.pth "
@@ -196,6 +187,33 @@ class FaceSwapSession:
                         self.arcface.net):
                 _zero_(net)
 
+        # the stitching and retargeting nets (f32), under any of their flags
+        cfg = self.inference_cfg
+        self.use_stitching = bool(cfg.flag_stitching)
+        self.use_eye_retarget = bool(cfg.flag_eye_retargeting)
+        self.use_lip_retarget = bool(cfg.flag_lip_retargeting)
+        self.stitching = None
+        if self.use_stitching or self.use_eye_retarget \
+                or self.use_lip_retarget:
+            self.stitching = StitchingModule(model_cfg.motion.num_kp,
+                                             model_cfg.stitching)
+            if fast_init:
+                _zero_(self.stitching)
+            else:
+                init_random_(self.stitching, seeds["stitching"])
+            self.stitching.eval().requires_grad_(False).to(dev)
+            if cfg.stitching_checkpoint:
+                self.load_stitching_checkpoint(cfg.stitching_checkpoint)
+
+    def load_stitching_checkpoint(self, path: str) -> None:
+        """The reference's stitching checkpoint (``.pth``) or its ``.npz``
+        from ``canonswap_tpu.cli.convert stitching``, strict keys
+        (``runtime/weights.py::load_stitching_checkpoint``)."""
+        from canonswap_torch.runtime.weights import load_stitching_checkpoint
+
+        self.stitching.load_state_dict(load_stitching_checkpoint(path),
+                                       strict=True)
+
     def synchronize(self) -> None:
         """Wait for the session's device (a no-op on the CPU): a stage timed
         on the host clock ends here."""
@@ -226,25 +244,47 @@ class FaceSwapSession:
         with torch.inference_mode():
             return C.extract_motion(self.core, frames01)
 
+    def _adjust(self, eye_ratio, lip_ratio) -> dict:
+        """The keypoint adjustment's arguments under the session's flags;
+        the ratios ((B, 3) eye, (B, 2) lip; numpy or tensors) go to the
+        device in f32, each only under its flag."""
+        def ratio(r, on):
+            return (torch.as_tensor(r).to(self.device, torch.float32)
+                    if on and r is not None else None)
+
+        return dict(stitching=self.stitching,
+                    eye_ratio=ratio(eye_ratio, self.use_eye_retarget),
+                    lip_ratio=ratio(lip_ratio, self.use_lip_retarget),
+                    use_stitching=self.use_stitching,
+                    normalize_lip=bool(self.inference_cfg.flag_normalize_lip))
+
     def swap_with_motion(self, frames01: torch.Tensor,
                          source_id: torch.Tensor, with_debug: bool = False,
-                         as_uint8: bool = False) -> tuple[dict, dict]:
+                         as_uint8: bool = False, eye_ratio=None,
+                         lip_ratio=None) -> tuple[dict, dict]:
         """Motion extraction and the swap of one batch; images in f32, or
-        uint8 quantized on the device under ``as_uint8``."""
-        out, motion = C.swap_with_motion(self.core, frames01, source_id,
-                                         with_debug=with_debug,
-                                         as_uint8=as_uint8)
+        uint8 quantized on the device under ``as_uint8``.  The keypoints
+        are adjusted under the stitching flags; the motion returned is the
+        unadjusted one (``runtime/core.py::swap_with_motion``)."""
+        out, motion = C.swap_with_motion(
+            self.core, frames01, source_id, with_debug=with_debug,
+            as_uint8=as_uint8, **self._adjust(eye_ratio, lip_ratio))
         if not as_uint8:
             out = {k: v.float() for k, v in out.items()}
         return out, motion
 
     def swap_batch(self, frames01: torch.Tensor, source_id: torch.Tensor,
-                   motion: dict, with_debug: bool = False) -> dict:
+                   motion: dict, with_debug: bool = False, eye_ratio=None,
+                   lip_ratio=None) -> dict:
         """The swap of one batch at a given motion (the cached-template
-        path): the motion arrays go to the device in f32."""
+        path): the motion arrays go to the device in f32, and x_t is
+        adjusted under the stitching flags, as the fused path adjusts it."""
         motion = {k: torch.as_tensor(v).to(self.device, torch.float32)
                   for k, v in motion.items()}
         with torch.inference_mode():
+            if self.stitching is not None:
+                motion["x_t"] = C.adjust_driving_kp(
+                    x_t=motion["x_t"], **self._adjust(eye_ratio, lip_ratio))
             out = C.swap_step(self.core, frames01, source_id, motion,
                               with_debug=with_debug)
         return {k: v.float() for k, v in out.items()}

@@ -4,11 +4,13 @@ The port's counterpart of ``canonswap_tpu/pipelines/swap_e2e.py`` (the
 reference's CanSwapPipeline.execute, can_swap_pipeline_e2e.py:137-350),
 step for step: the source ID; the driving clip (uploaded to the device
 once); the tracking crop, or on a square clip without ``--flag-crop-
-driving-video`` the resize and the blend; the eye and lip ratios; the
-motion template cached beside the driving file; batches padded to the
-batch size by repeating the last frame; the swap with its canonical debug
-strips, parsing, quantization and the paste-back on the device; one copy
-of each batch to the host.
+driving-video`` the resize and the blend; the eye and lip ratios (and
+under the retargeting flags the combined ratios, with the source's); the
+motion template cached beside the driving file, unadjusted (where the JAX
+pipeline dumps the retargeted keypoints and so adjusts twice on a cached
+run); batches padded to the batch size by repeating the last frame; the
+swap with its canonical debug strips, parsing, quantization and the
+paste-back on the device; one copy of each batch to the host.
 
 Outputs: ``<output_dir>/<source>--<driving>`` (the pasted-back result) and
 ``..._concat`` (driving crop | canonical swap | result | canonical
@@ -32,7 +34,9 @@ from canonswap_torch.runtime.core import to_uint8
 from canonswap_torch.utils import geometry as G
 from canonswap_torch.utils import io as IO
 from canonswap_torch.utils import video as V
-from canonswap_torch.utils.ratios import (calc_eye_close_ratio,
+from canonswap_torch.utils.ratios import (calc_combined_eye_ratio,
+                                          calc_combined_lip_ratio,
+                                          calc_eye_close_ratio,
                                           calc_lip_close_ratio)
 from canonswap_torch.utils.rlog import log
 from canonswap_torch.utils.timing import StageTimer
@@ -129,6 +133,21 @@ def execute(session: FaceSwapSession, args: ArgumentConfig,
     c_d_eyes_lst = [calc_eye_close_ratio(lmk[None]) for lmk in lmk_crop_lst]
     c_d_lip_lst = [calc_lip_close_ratio(lmk[None]) for lmk in lmk_crop_lst]
 
+    # the combined ratios of the retargeting nets (can_swap_e2e.py:324-348):
+    # the source's own eye and lip ratios beside each driving frame's
+    eye_ratio_all = lip_ratio_all = None
+    if session.use_eye_retarget or session.use_lip_retarget:
+        src_crop = session.cropper.crop_source_image(source_rgb)
+        if src_crop is None:
+            raise RuntimeError(
+                "No face detected in the source image (needed for the "
+                "retargeting ratios).")
+        source_lmk = src_crop["lmk_crop"]
+        eye_ratio_all = np.concatenate(
+            [calc_combined_eye_ratio(c, source_lmk) for c in c_d_eyes_lst])
+        lip_ratio_all = np.concatenate(
+            [calc_combined_lip_ratio(c, source_lmk) for c in c_d_lip_lst])
+
     # 4) motion template, cached on disk beside the driving clip ----------
     template_path = (osp.splitext(args.driving)[0] + ".pkl"
                      if flag_is_video else None)
@@ -166,16 +185,23 @@ def execute(session: FaceSwapSession, args: ArgumentConfig,
         with timer.stage("generator", items=n, sync=sync):
             crops_b = crops[idx]
             frames01 = session.prepare_frames(crops_b)
+            ratios = dict(
+                eye_ratio=None if eye_ratio_all is None
+                else eye_ratio_all[idx],
+                lip_ratio=None if lip_ratio_all is None
+                else lip_ratio_all[idx])
             if use_fused:
+                # the template takes the unadjusted motion: the cached run
+                # adjusts it as this run does
                 out, motion = session.swap_with_motion(
-                    frames01, source_id, with_debug=True)
+                    frames01, source_id, with_debug=True, **ratios)
                 motion_chunks.append({k: v[:n].cpu().numpy()
                                       for k, v in motion.items()})
             else:
                 out = session.swap_batch(
                     frames01, source_id,
                     {k: v[idx] for k, v in motion_all.items()},
-                    with_debug=True)
+                    with_debug=True, **ratios)
         with timer.stage("parsing", items=n, sync=sync):
             masks = session.parse_masks(crops_b)
         with timer.stage("paste_back", items=n, sync=sync):

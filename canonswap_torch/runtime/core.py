@@ -161,18 +161,61 @@ def reanimate_step(core: CanonSwapCore, volume, x_swap, kp_swap, rot_swap,
                        x_t_2.to(vol.dtype))
 
 
+def adjust_driving_kp(stitching, x_t: torch.Tensor,
+                      eye_ratio: torch.Tensor | None = None,
+                      lip_ratio: torch.Tensor | None = None, *,
+                      use_stitching: bool = False,
+                      normalize_lip: bool = False,
+                      lip_normalize_threshold: float = 0.03) -> torch.Tensor:
+    """Eye and lip retargeting and stitching on the posed driving keypoints
+    (``canonswap_tpu/runtime/core.py::adjust_driving_kp``): the eye net's
+    delta from the (B, 3) eye ratio, then the lip net's from the (B, 2) lip
+    ratio, zeroed per row where ``normalize_lip`` and the ratio's second
+    (driving) column is below ``lip_normalize_threshold``, then the
+    stitching net from the original and the modified keypoints.
+    ``stitching``: a :class:`~canonswap_torch.models.stitching.StitchingModule`."""
+    dt = x_t.dtype
+    x_new = x_t
+    if eye_ratio is not None:
+        x_new = x_new + stitching.retarget_eye(x_t, eye_ratio.to(dt))
+    if lip_ratio is not None:
+        lr = lip_ratio.to(dt)
+        delta = stitching.retarget_lip(x_t, lr)
+        if normalize_lip:
+            gate = (lr[:, 1:2] >= lip_normalize_threshold).to(dt)
+            delta = delta * gate[:, :, None]
+        x_new = x_new + delta
+    if use_stitching:
+        x_new = stitching.stitch(x_t, x_new)
+    return x_new
+
+
 def swap_with_motion(core: CanonSwapCore, frames: torch.Tensor,
-                     source_id: torch.Tensor, *, with_debug: bool = False,
-                     as_uint8: bool = False):
+                     source_id: torch.Tensor, *, stitching=None,
+                     eye_ratio: torch.Tensor | None = None,
+                     lip_ratio: torch.Tensor | None = None,
+                     use_stitching: bool = False, normalize_lip: bool = False,
+                     with_debug: bool = False, as_uint8: bool = False):
     """Motion extraction + swap step for one frame batch.
 
+    ``stitching`` with ``use_stitching`` or a ratio swaps at the adjusted
+    keypoints (:func:`adjust_driving_kp`).  The motion returned is the
+    extracted one, x_t unadjusted: a template dumped from it and adjusted
+    again on the cached run swaps as this run did (the JAX package returns
+    the adjusted x_t, so its cached run adjusts twice).
     ``with_debug`` adds the canonical strips (:func:`swap_step`);
     ``as_uint8`` quantizes the images on the device, clip(255 * v)
     truncated as the JAX package does.  Returns (outputs dict, motion
     dict)."""
     with torch.inference_mode():
         motion = extract_motion(core, frames)
-        out = swap_step(core, frames, source_id, motion,
+        swap_motion = motion
+        if stitching is not None and (use_stitching or eye_ratio is not None
+                                      or lip_ratio is not None):
+            swap_motion = dict(motion, x_t=adjust_driving_kp(
+                stitching, motion["x_t"], eye_ratio, lip_ratio,
+                use_stitching=use_stitching, normalize_lip=normalize_lip))
+        out = swap_step(core, frames, source_id, swap_motion,
                         with_debug=with_debug)
         if as_uint8:
             out = {k: to_uint8(v) for k, v in out.items()}

@@ -21,10 +21,15 @@ the reference checkpoint, which are the port's own.  Conventions undone here:
 
 Besides the core's six networks: the sidecars' and the face stack's nets
 (``landmark_from_jax``, ``landmark_net_from_jax``, ``segformer_from_jax``,
-``scrfd_from_jax``, ``arcface_from_jax``), and a whole JAX session's
-(:func:`session_from_jax`).
+``scrfd_from_jax``, ``arcface_from_jax``), the stitching nets
+(:func:`stitching_from_jax`, and :func:`load_stitching_checkpoint` for the
+reference's file), and a whole JAX session's (:func:`session_from_jax`).
+:func:`to_jax` goes the other way for the core, so the port writes the JAX
+package's ``.npz``.
 
-Spectral norm stays baked into the SPADE convs' ``weight``.
+Spectral norm stays baked into the SPADE convs' ``weight``; with live
+spectral norm (``SpadeConfig.spectral_norm``) the ``spectral`` collection's
+``u`` is the conv's ``u`` buffer.
 """
 
 from __future__ import annotations
@@ -102,6 +107,7 @@ class _Reader:
     def __init__(self, variables: dict):
         self.params = variables["params"]
         self.stats = variables.get("batch_stats", {})
+        self.spectral = variables.get("spectral", {})
         self.sd: dict[str, torch.Tensor] = {}
 
     @staticmethod
@@ -110,16 +116,19 @@ class _Reader:
             root = root[part]
         return root
 
-    def has(self, path: str) -> bool:
+    def has(self, path: str, key: str | None = None) -> bool:
+        """Whether the tree holds ``path``; ``key`` names the same module
+        in the state_dict, for :class:`_Writer`."""
         try:
             self._node(self.params, path)
         except KeyError:
             return False
         return True
 
-    def count(self, fmt: str) -> int:
+    def count(self, fmt: str, key_fmt: str | None = None) -> int:
         i = 0
-        while self.has(fmt.format(i)):
+        while self.has(fmt.format(i), None if key_fmt is None
+                       else key_fmt.format(i)):
             i += 1
         return i
 
@@ -133,6 +142,10 @@ class _Reader:
         self._put(f"{key}.weight", k.transpose(n - 1, n - 2, *range(n - 2)))
         if "bias" in leaf:
             self._put(f"{key}.bias", leaf["bias"])
+        try:  # live spectral norm's power-iteration vector
+            self._put(f"{key}.u", self._node(self.spectral, path)["u"])
+        except KeyError:
+            pass
 
     def conv_dw(self, path: str, key: str) -> None:
         leaf = self._node(self.params, path)
@@ -163,6 +176,11 @@ class _Reader:
         self._put(f"{key}.running_var", stats["var"])
         self.sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
 
+    def grn(self, path: str, key: str) -> None:
+        grn = self._node(self.params, path)
+        for name in ("gamma", "beta"):
+            self._put(f"{key}.{name}", np.asarray(grn[name]).reshape(1, 1, 1, -1))
+
     # blocks ---------------------------------------------------------------
 
     def same_block(self, path: str, key: str) -> None:
@@ -180,7 +198,7 @@ class _Reader:
         self.affine(f"{path}/gn1", f"{key}.gn1")
         self.conv(f"{path}/conv2", f"{key}.conv2")
         self.affine(f"{path}/gn2", f"{key}.gn2")
-        if self.has(f"{path}/shortcut"):
+        if self.has(f"{path}/shortcut", f"{key}.shortcut"):
             self.conv(f"{path}/shortcut", f"{key}.shortcut")
 
     def spade(self, path: str, key: str) -> None:
@@ -192,7 +210,7 @@ class _Reader:
         for i in (0, 1):
             self.spade(f"{path}/norm_{i}", f"{key}.norm_{i}")
             self.conv(f"{path}/conv_{i}", f"{key}.conv_{i}")
-        if self.has(f"{path}/conv_s"):
+        if self.has(f"{path}/conv_s", f"{key}.conv_s"):
             self.spade(f"{path}/norm_s", f"{key}.norm_s")
             self.conv(f"{path}/conv_s", f"{key}.conv_s")
 
@@ -205,19 +223,93 @@ class _Reader:
         self.conv(f"{path}/mask_conv", f"{key}.mask_conv.0")
 
 
-def appearance_from_jax(variables: dict) -> dict[str, torch.Tensor]:
-    r = _Reader(variables)
+class _Writer(_Reader):
+    """The inverse of :class:`_Reader`: one network's torch state_dict into
+    its JAX tree (``params``, ``batch_stats``, ``spectral``) of numpy
+    arrays.  The blocks are the reader's; each leaf goes the other way, and
+    a structural query looks for the module's key in the state_dict."""
+
+    def __init__(self, sd: dict):
+        self.src = {k: v.detach().cpu().numpy() for k, v in sd.items()}
+        self.params: dict = {}
+        self.stats: dict = {}
+        self.spectral: dict = {}
+
+    def has(self, path: str, key: str | None = None) -> bool:
+        return any(k.startswith(key + ".") for k in self.src)
+
+    @staticmethod
+    def _set(root: dict, path: str, leaf: str, value) -> None:
+        for part in path.split("/"):
+            root = root.setdefault(part, {})
+        root[leaf] = np.ascontiguousarray(value)
+
+    def _leaf(self, path, leaf, key, root=None) -> None:
+        self._set(self.params if root is None else root, path, leaf,
+                  self.src[key])
+
+    def conv(self, path: str, key: str) -> None:
+        w = self.src[f"{key}.weight"]
+        n = w.ndim
+        self._set(self.params, path, "kernel",
+                  w.transpose(*range(2, n), 1, 0))
+        if f"{key}.bias" in self.src:
+            self._leaf(path, "bias", f"{key}.bias")
+        if f"{key}.u" in self.src:
+            self._leaf(path, "u", f"{key}.u", self.spectral)
+
+    def conv_dw(self, path: str, key: str) -> None:
+        self._set(self.params, path, "kernel",
+                  self.src[f"{key}.weight"].transpose(2, 3, 1, 0))
+        if f"{key}.bias" in self.src:
+            self._leaf(path, "bias", f"{key}.bias")
+
+    def dense(self, path: str, key: str) -> None:
+        self._set(self.params, path, "kernel", self.src[f"{key}.weight"].T)
+        if f"{key}.bias" in self.src:
+            self._leaf(path, "bias", f"{key}.bias")
+
+    def affine(self, path: str, key: str) -> None:
+        self._leaf(path, "scale", f"{key}.weight")
+        self._leaf(path, "bias", f"{key}.bias")
+
+    def bn(self, path: str, key: str) -> None:
+        self.affine(path, key)
+        self._leaf(path, "mean", f"{key}.running_mean", self.stats)
+        self._leaf(path, "var", f"{key}.running_var", self.stats)
+
+    def grn(self, path: str, key: str) -> None:
+        for name in ("gamma", "beta"):
+            self._set(self.params, path, name,
+                      self.src[f"{key}.{name}"].reshape(-1))
+
+    def adaptive_conv(self, path: str, key: str) -> None:
+        self._set(self.params, path, "weight",
+                  self.src[f"{key}.weight"].transpose(2, 3, 1, 0))
+        self._leaf(path, "bias", f"{key}.bias_param")
+        self.dense(f"{path}/style_fc0", f"{key}.style_fc.0")
+        self.dense(f"{path}/style_fc1", f"{key}.style_fc.2")
+        self.conv(f"{path}/mask_conv", f"{key}.mask_conv.0")
+
+    def variables(self) -> dict:
+        out = {"params": self.params}
+        if self.stats:
+            out["batch_stats"] = self.stats
+        if self.spectral:
+            out["spectral"] = self.spectral
+        return out
+
+
+def _appearance(r: _Reader) -> None:
     r.same_block("first", "first")
-    for i in range(r.count("down{}")):
+    for i in range(r.count("down{}", "down_blocks.{}")):
         r.same_block(f"down{i}", f"down_blocks.{i}")
     r.conv("second", "second")
-    for i in range(r.count("res3d_{}")):
+    for i in range(r.count("res3d_{}", "resblocks_3d.3dr{}")):
         r.res_block(f"res3d_{i}", f"resblocks_3d.3dr{i}")
-    return r.sd
 
 
-def motion_from_jax(variables: dict) -> dict[str, torch.Tensor]:
-    r = _Reader(variables)
+def _motion(r: _Reader) -> None:
     d, t = "detector/", "detector."
     r.conv(d + "stem_conv", t + "downsample_layers.0.0")
     r.affine(d + "stem_norm", t + "downsample_layers.0.1")
@@ -225,33 +317,31 @@ def motion_from_jax(variables: dict) -> dict[str, torch.Tensor]:
         r.affine(d + f"down{i}_norm", t + f"downsample_layers.{i}.0")
         r.conv(d + f"down{i}_conv", t + f"downsample_layers.{i}.1")
     for i in range(4):
-        for j in range(r.count(d + f"stage{i}_block{{}}")):
+        for j in range(r.count(d + f"stage{i}_block{{}}",
+                               t + f"stages.{i}.{{}}")):
             b, k = d + f"stage{i}_block{j}", t + f"stages.{i}.{j}"
             r.conv_dw(f"{b}/dwconv", f"{k}.dwconv")
             r.affine(f"{b}/norm", f"{k}.norm")
             r.dense(f"{b}/pwconv1", f"{k}.pwconv1")
-            grn = r._node(r.params, f"{b}/grn")
-            for name in ("gamma", "beta"):
-                r._put(f"{k}.grn.{name}",
-                       np.asarray(grn[name]).reshape(1, 1, 1, -1))
+            r.grn(f"{b}/grn", f"{k}.grn")
             r.dense(f"{b}/pwconv2", f"{k}.pwconv2")
     r.affine(d + "head_norm", t + "norm")
     for head in ("fc_kp", "fc_pitch", "fc_yaw", "fc_roll", "fc_t", "fc_exp",
                  "fc_scale"):
         r.dense(d + head, t + head)
-    return r.sd
 
 
-def warping_from_jax(variables: dict) -> dict[str, torch.Tensor]:
-    r = _Reader(variables)
+def _warping(r: _Reader) -> None:
     dm = "dense_motion_network"
     hg = f"{dm}/hourglass"
     r.conv(f"{dm}/compress", f"{dm}.compress")
     r.bn(f"{dm}/norm", f"{dm}.norm")
-    for i in range(r.count(hg + "/encoder/down{}")):
+    for i in range(r.count(hg + "/encoder/down{}",
+                           f"{dm}.hourglass.encoder.down_blocks.{{}}")):
         r.same_block(f"{hg}/encoder/down{i}",
                      f"{dm}.hourglass.encoder.down_blocks.{i}")
-    for j in range(r.count(hg + "/decoder/up{}")):
+    for j in range(r.count(hg + "/decoder/up{}",
+                           f"{dm}.hourglass.decoder.up_blocks.{{}}")):
         r.same_block(f"{hg}/decoder/up{j}",
                      f"{dm}.hourglass.decoder.up_blocks.{j}")
     r.conv(f"{hg}/decoder/Conv_0", f"{dm}.hourglass.decoder.conv")
@@ -260,37 +350,60 @@ def warping_from_jax(variables: dict) -> dict[str, torch.Tensor]:
     r.conv(f"{dm}/occlusion", f"{dm}.occlusion")
     r.same_block("third", "third")
     r.conv("fourth", "fourth")
-    return r.sd
 
 
-def spade_from_jax(variables: dict) -> dict[str, torch.Tensor]:
-    r = _Reader(variables)
+def _spade(r: _Reader) -> None:
     r.conv("fc", "fc")
     for name in [f"G_middle_{i}" for i in range(6)] + ["up_0", "up_1"]:
         r.spade_resblock(name, name)
     # the pixel-shuffle head is nn.Sequential(conv, PixelShuffle)
     r.conv("conv_img", "conv_img.0")
-    return r.sd
 
 
-def transfer_from_jax(variables: dict) -> dict[str, torch.Tensor]:
-    r = _Reader(variables)
-    for i in range(r.count("bottleneck2d_{}")):
+def _transfer(r: _Reader) -> None:
+    for i in range(r.count("bottleneck2d_{}", "BottleNeck_2d.{}")):
         for conv in ("conv1", "conv2"):
             r.adaptive_conv(f"bottleneck2d_{i}/{conv}",
                             f"BottleNeck_2d.{i}.{conv}")
-    for i in range(r.count("res3d_{}")):
+    for i in range(r.count("res3d_{}", "resblocks_3d.3dr{}")):
         r.res_block(f"res3d_{i}", f"resblocks_3d.3dr{i}")
-    return r.sd
 
 
-def refine_from_jax(variables: dict) -> dict[str, torch.Tensor]:
-    r = _Reader(variables)
+def _refine(r: _Reader) -> None:
     for i in range(3):
         r.res_block_leak_gn(f"res3d_in_{i}", f"resblocks1.{i}")
         r.res_block(f"res2d_{i}", f"resblocks2.{i}")
         r.res_block_leak_gn(f"res3d_out_{i}", f"resblocks3.{i}")
+
+
+def _read(body, variables: dict) -> dict[str, torch.Tensor]:
+    r = _Reader(variables)
+    body(r)
     return r.sd
+
+
+def appearance_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    return _read(_appearance, variables)
+
+
+def motion_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    return _read(_motion, variables)
+
+
+def warping_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    return _read(_warping, variables)
+
+
+def spade_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    return _read(_spade, variables)
+
+
+def transfer_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    return _read(_transfer, variables)
+
+
+def refine_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    return _read(_refine, variables)
 
 
 def landmark_from_jax(variables: dict) -> dict[str, torch.Tensor]:
@@ -440,6 +553,64 @@ FROM_JAX = {
     "transfer": transfer_from_jax,
     "refine": refine_from_jax,
 }
+
+
+_BODIES = {
+    "appearance_feature_extractor": _appearance,
+    "motion_extractor": _motion,
+    "warping_module": _warping,
+    "spade_generator": _spade,
+    "transfer": _transfer,
+    "refine": _refine,
+}
+
+
+def to_jax(state_dict: dict[str, torch.Tensor]) -> dict[str, Any]:
+    """The inverse of :func:`from_jax`: the port's ``CanonSwapCore``
+    state_dict -> the JAX core's variables, six trees of numpy arrays keyed
+    like the checkpoint, the layout ``canonswap_tpu.runtime.checkpoint.
+    save_npz`` writes.  ``num_batches_tracked`` has no JAX leaf."""
+    out = {}
+    for net, body in _BODIES.items():
+        w = _Writer({k[len(net) + 1:]: v for k, v in state_dict.items()
+                     if k.startswith(net + ".")})
+        body(w)
+        out[net] = w.variables()
+    return out
+
+
+def stitching_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """The JAX ``StitchingModule``'s variables (``params`` of ``stitching``,
+    ``eye`` and ``lip``, each ``fc{i}`` and ``out``) -> the port's
+    ``models/stitching.py::StitchingModule`` state_dict."""
+    out = {}
+    for net, tree in variables["params"].items():
+        r = _Reader({"params": tree})
+        n = r.count("fc{}")
+        for i in range(n):
+            r.dense(f"fc{i}", f"mlp.{2 * i}")
+        r.dense("out", f"mlp.{2 * n}")
+        out.update({f"{net}.{k}": v for k, v in r.sd.items()})
+    return out
+
+
+def load_stitching_checkpoint(path: str | os.PathLike
+                              ) -> dict[str, torch.Tensor]:
+    """The stitching and retargeting checkpoint -> the port's
+    ``StitchingModule`` state_dict: the reference's ``.pth`` (a dict of the
+    ``retarget_shoulder``, ``retarget_eye`` and ``retarget_mouth``
+    state_dicts, keys ``mlp.{2i}``; torch alone, ``weights_only``) or the
+    ``.npz`` that ``python -m canonswap_tpu.cli.convert stitching`` writes
+    (its '/'-flattened JAX tree; numpy alone)."""
+    from canonswap_torch.models.stitching import CHECKPOINT_KEYS
+    from canonswap_torch.runtime.checkpoint import load_npz
+
+    path = os.fspath(path)
+    if path.endswith(".npz"):
+        return stitching_from_jax(load_npz(path))
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return {f"{net}.{k}": v for net, theirs in CHECKPOINT_KEYS.items()
+            for k, v in strip_prefixes(ckpt[theirs]).items()}
 
 
 def from_jax(variables: dict[str, Any]) -> dict[str, torch.Tensor]:

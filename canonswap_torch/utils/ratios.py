@@ -4,7 +4,7 @@ The port's own copy of ``canonswap_tpu/utils/ratios.py`` (numpy), which
 re-implements the reference's src/utils/retargeting_utils.py:9-24 (the
 landmark index pairs are properties of the 203-point layout).  The
 pipelines store the eye and lip ratios in the motion template; the combined
-ratios feed the retargeting nets, which the port does not have yet.
+ratios feed the retargeting nets (``models/stitching.py``).
 """
 
 from __future__ import annotations

@@ -8,10 +8,23 @@ both sides run the same weights; inputs are made with numpy from a seed.
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 # ROADMAP's port tolerance (tests/test_reference_parity.py's)
 RTOL = ATOL = 2e-4
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """PyTorch on one CPU thread for a module: the gate runs six test
+    workers on the machine's cores, and each worker's default of one
+    thread per core oversubscribes them (small TINY ops then spend their
+    time waiting on one another)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def rng(seed: int = 0) -> np.random.Generator:

@@ -12,7 +12,7 @@ from canonswap_tpu.configs import model_config as J
 from canonswap_tpu.models import parsing as JP
 
 SUBCONFIGS = ["appearance", "motion", "warping", "warping.dense_motion",
-              "spade", "swap"]
+              "spade", "swap", "stitching"]
 
 
 def _get(cfg, path: str):
@@ -49,7 +49,8 @@ def test_sizes_match_the_jax_config(preset):
 def test_jax_options_the_port_lacks_are_off():
     """The JAX presets set the options the port does not have as the port
     runs: the occlusion map, the 2x pixel-shuffle head, no int8 dense
-    motion, no SPADE norm_scale, no live spectral norm."""
+    motion, no SPADE norm_scale; and no live spectral norm, which the port
+    has (off by default, as in the JAX presets)."""
     for cfg in (J.CANONICAL, J.TINY):
         assert cfg.warping.estimate_occlusion_map and cfg.spade.upscale == 2
         assert not cfg.warping.dense_motion.int8_conv

@@ -21,6 +21,7 @@ import torch
 
 from canonswap_torch import configs as PC
 from canonswap_torch.cli import main as PCLI
+from canonswap_torch.models.stitching import StitchingModule
 from canonswap_torch.pipelines import session as PS
 from canonswap_tpu.cli import main as JCLI
 from canonswap_tpu.configs import pipeline_config as JPC
@@ -99,9 +100,6 @@ def _session(seed=0, fast_init=True, **inference):
 
 @pytest.mark.parametrize("flags,error,match", [
     ({"flag_relative_motion": True}, ValueError, "flag_relative_motion"),
-    ({"flag_stitching": True}, NotImplementedError, "A 6"),
-    ({"flag_eye_retargeting": True}, NotImplementedError, "A 6"),
-    ({"flag_lip_retargeting": True}, NotImplementedError, "A 6"),
     ({"debug_nans": True}, NotImplementedError, "A 8"),
     ({"spade_norm_scale": 2}, ValueError, "spade_norm_scale"),
     ({"warp_impl": "pallas"}, ValueError, "TPU"),
@@ -109,6 +107,28 @@ def _session(seed=0, fast_init=True, **inference):
 def test_flags_the_port_lacks_raise(flags, error, match):
     with pytest.raises(error, match=match):
         PS._model_config(PC.InferenceConfig(**flags), PC.TINY)
+
+
+@pytest.mark.parametrize("flag", [None, "flag_stitching",
+                                  "flag_eye_retargeting",
+                                  "flag_lip_retargeting"])
+def test_stitching_flags_build_the_nets(flag):
+    """Each stitching flag keeps the generator's config and gives the
+    session the stitching nets (f32), with that flag's switch on; without
+    one the session has none."""
+    flags = {flag: True} if flag else {}
+    assert PS._model_config(PC.InferenceConfig(**flags), PC.TINY) == PC.TINY
+    session = _session(**flags)
+    switches = {"flag_stitching": session.use_stitching,
+                "flag_eye_retargeting": session.use_eye_retarget,
+                "flag_lip_retargeting": session.use_lip_retarget}
+    assert switches == {k: k == flag for k in switches}
+    if flag is None:
+        assert session.stitching is None
+        return
+    assert isinstance(session.stitching, StitchingModule)
+    assert all(p.dtype == torch.float32 and not p.requires_grad
+               for p in session.stitching.parameters())
 
 
 def test_speed_flags_build_the_fast_bundle():

@@ -154,7 +154,9 @@ def test_port_sources_import_nothing_of_jax():
                  "utils/helper.py", "pipelines/session.py",
                  "pipelines/swap_e2e.py", "pipelines/swap_v2i.py",
                  "pipelines/swap_multi.py", "pipelines/streaming.py",
-                 "cli/main.py"):
+                 "cli/main.py", "cli/train.py", "models/stitching.py",
+                 "nn/spectral.py", "runtime/train.py",
+                 "runtime/checkpoint.py"):
         assert REPO / "canonswap_torch" / name in files
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
