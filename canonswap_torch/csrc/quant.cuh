@@ -11,17 +11,19 @@
 // contiguous and zero-padded to Cp).
 //
 // Both passes let the next kernel on the stream start early (Hopper's
-// programmatic dependent launch): a kernel launched by launch_after_prior
-// runs its prologue while the one before it drains and waits in
-// wait_for_prior_grid before it reads what that one wrote.  Launched
-// without it, as qconv.cu launches them, the wait returns at once and the
-// early start does nothing.
+// programmatic dependent launch, chain.cuh): a kernel launched by
+// launch_after_prior runs its prologue while the one before it drains and
+// waits in wait_for_prior_grid before it reads what that one wrote.
+// Launched without it, as qconv.cu launches them, the wait returns at once
+// and the early start does nothing.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "chain.cuh"
 
 namespace {
 
@@ -80,36 +82,6 @@ __device__ __forceinline__ void load16(const T* p, float* f) {
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// the next kernel on the stream may start (griddepcontrol.launch_dependents)
-__device__ __forceinline__ void allow_next_grid() {
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
-}
-
-// wait until the kernel before this one has finished and its writes are
-// visible (griddepcontrol.wait); at once where there is no such kernel
-__device__ __forceinline__ void wait_for_prior_grid() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-}
-
-// launch kernel<<<grid, block, 0, s>>>(args...) so that it may start while
-// the kernel before it on s drains; it calls wait_for_prior_grid before it
-// reads that kernel's output
-template <typename... Params, typename... Args>
-cudaError_t launch_after_prior(void (*kernel)(Params...), dim3 grid, dim3 block, cudaStream_t s,
-                               Args... args) {
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
 // ---------------------------------------------------------------------------

@@ -46,7 +46,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "chain.cuh"
 
 namespace {
 
@@ -158,79 +161,265 @@ cudaError_t launch(const void* vol, const void* grid, void* out, int B, int C, i
 // zero.  At an integer coordinate this takes the cell above it, as
 // F.grid_sample's backward does.
 //
-// Design (the simple one): one thread per output point, its 8 corner offsets,
-// weights and partial derivatives computed once in registers, a loop over the
-// channels.  grad_vol is scattered with f32 atomics (RED) into a buffer the
-// wrapper zeroes; grad_grid is reduced over the channels in registers and
-// written once per point.  What bounds it: the scatter.  At CANONICAL B=8,
-// C=32 it issues 8 atomics per channel per point (134 M), and a smooth field
-// sends about 8 neighbouring points to each corner, so the L2's atomic units
-// serialize them; the bytes alone (read vol, grid, grad_out; write grad_vol,
-// grad_grid) would take 0.10 ms at 3.35 TB/s.  Per-tile accumulation in
-// shared memory, or a gather over the inverse map, is later work.
+// DESIGN-HEADER
 
-constexpr int BWD_THREADS = 256;
+#ifndef WARP_BWD_TILE_Z
+#define WARP_BWD_TILE_Z 2
+#endif
+#ifndef WARP_BWD_TILE_Y
+#define WARP_BWD_TILE_Y 8
+#endif
+#ifndef WARP_BWD_TILE_X
+#define WARP_BWD_TILE_X 8
+#endif
+#ifndef WARP_BWD_THREADS
+#define WARP_BWD_THREADS 256
+#endif
+#ifndef WARP_BWD_BOX_BYTES
+#define WARP_BWD_BOX_BYTES 114688
+#endif
 
-__global__ void __launch_bounds__(BWD_THREADS) warp3d_backward_kernel(
-    const float* __restrict__ vol, const float* __restrict__ grid,
-    const float* __restrict__ gout, float* __restrict__ gvol,
-    float* __restrict__ ggrid, int B, int C, int D, int H, int W, int P) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)B * P) return;
-  const int64_t b = idx / P;
-  const int64_t p = idx - b * P;
+constexpr int TILE_Z = WARP_BWD_TILE_Z, TILE_Y = WARP_BWD_TILE_Y, TILE_X = WARP_BWD_TILE_X;
+constexpr int TILE_POINTS = TILE_Z * TILE_Y * TILE_X;
+constexpr int BWD_THREADS = WARP_BWD_THREADS;
+constexpr int LANES = 8;          // lanes per output point, 4 channels each
+constexpr int CHUNK = 4 * LANES;  // channels per sweep over the tile
+constexpr int POINTS_PER_PASS = BWD_THREADS / LANES;
+constexpr int PASSES = (TILE_POINTS + POINTS_PER_PASS - 1) / POINTS_PER_PASS;
+constexpr int BOX_BYTES = WARP_BWD_BOX_BYTES;  // the shared box accumulator's budget
+constexpr int TT = 32;            // transpose tile: 32 voxels x 32 channels
+static_assert(BWD_THREADS % 32 == 0 && BWD_THREADS <= 1024, "whole warps");
+static_assert(BOX_BYTES + 64 <= 232448, "a block's shared memory");
 
-  const float* g = grid + idx * 3;
-  const Axis ax = axis_taps(g[0], W);
-  const Axis ay = axis_taps(g[1], H);
-  const Axis az = axis_taps(g[2], D);
+struct BwdShape {
+  int C, Cp, D, H, W, Do, Ho, Wo, tiles_z, tiles_y, tiles_x;
+};
 
-  int64_t off[8];
-  float wgt[8], dx_[8], dy_[8], dz_[8];
-  bool ok[8];
+// vol (B, C, S) -> vol_cl (B, S, Cp), channels zero-padded to Cp; the
+// accumulator acc (B, S, Cp) zeroed.  Blocks of 32 x 8 threads, one 32 x 32
+// tile each through shared memory, so both sides are read and written along
+// their contiguous axis.
+__global__ void __launch_bounds__(TT * 8) bwd_prep_kernel(const float* __restrict__ vol,
+                                                         float* __restrict__ vol_cl,
+                                                         float* __restrict__ acc, int C, int Cp,
+                                                         int64_t S) {
+  __shared__ float t[TT][TT + 1];
+  allow_next_grid();
+  const int64_t s0 = (int64_t)blockIdx.x * TT, b = blockIdx.z;
+  const int c0 = blockIdx.y * TT, tx = threadIdx.x;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
-    const float wz = dz ? az.w1 : az.w0;
-    const float wy = dy ? ay.w1 : ay.w0;
-    const float wx = dx ? ax.w1 : ax.w0;
-    ok[k] = (dz ? az.v1 : az.v0) && (dy ? ay.v1 : ay.v0) && (dx ? ax.v1 : ax.v0);
-    wgt[k] = wz * wy * wx;
-    dx_[k] = (dx ? 1.0f : -1.0f) * wy * wz;
-    dy_[k] = (dy ? 1.0f : -1.0f) * wx * wz;
-    dz_[k] = (dz ? 1.0f : -1.0f) * wx * wy;
-    off[k] = ok[k] ? ((int64_t)(az.i0 + dz) * H + (ay.i0 + dy)) * W + (ax.i0 + dx) : 0;
+  for (int r = threadIdx.y; r < TT; r += 8) {
+    const int c = c0 + r;
+    const int64_t s = s0 + tx;
+    t[r][tx] = (c < C && s < S) ? vol[(b * C + c) * S + s] : 0.0f;
   }
-
-  const int64_t plane = (int64_t)D * H * W;
-  const float* vb = vol + b * C * plane;
-  float* gvb = gvol + b * C * plane;
-  const float* gob = gout + b * C * (int64_t)P + p;
-  float sx = 0.0f, sy = 0.0f, sz = 0.0f;
-#pragma unroll 1
-  for (int c = 0; c < C; ++c) {
-    const float go = gob[c * (int64_t)P];
-    const float* vc = vb + c * plane;
-    float* gvc = gvb + c * plane;
-    float px = 0.0f, py = 0.0f, pz = 0.0f;
+  __syncthreads();
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      if (ok[k]) {
-        const float v = vc[off[k]];
-        px += dx_[k] * v;
-        py += dy_[k] * v;
-        pz += dz_[k] * v;
-        atomicAdd(gvc + off[k], wgt[k] * go);
+  for (int r = threadIdx.y; r < TT; r += 8) {
+    const int64_t s = s0 + r;
+    const int c = c0 + tx;
+    if (s < S && c < Cp) {
+      const int64_t o = (b * S + s) * Cp + c;
+      vol_cl[o] = t[tx][r];
+      acc[o] = 0.0f;
+    }
+  }
+}
+
+// acc (B, S, Cp) -> grad_vol (B, C, S), the same tiling
+__global__ void __launch_bounds__(TT * 8) bwd_finish_kernel(const float* __restrict__ acc,
+                                                           float* __restrict__ gvol, int C,
+                                                           int Cp, int64_t S) {
+  __shared__ float t[TT][TT + 1];
+  wait_for_prior_grid();
+  const int64_t s0 = (int64_t)blockIdx.x * TT, b = blockIdx.z;
+  const int c0 = blockIdx.y * TT, tx = threadIdx.x;
+#pragma unroll
+  for (int r = threadIdx.y; r < TT; r += 8) {
+    const int64_t s = s0 + r;
+    const int c = c0 + tx;
+    t[r][tx] = (s < S && c < C) ? acc[(b * S + s) * Cp + c] : 0.0f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = threadIdx.y; r < TT; r += 8) {
+    const int c = c0 + r;
+    const int64_t s = s0 + tx;
+    if (c < C && s < S) gvol[(b * C + c) * S + s] = t[tx][r];
+  }
+}
+
+// point i of a tile (x fastest) -> its flat index p in (Do, Ho, Wo); false
+// where the tile overhangs the output's edge
+__device__ __forceinline__ bool tile_point(int i, int tz, int ty, int tx, const BwdShape& sh,
+                                           int64_t& p) {
+  const int zo = tz * TILE_Z + i / (TILE_Y * TILE_X);
+  const int yo = ty * TILE_Y + (i / TILE_X) % TILE_Y;
+  const int xo = tx * TILE_X + i % TILE_X;
+  p = ((int64_t)zo * sh.Ho + yo) * sh.Wo + xo;
+  return i < TILE_POINTS && zo < sh.Do && yo < sh.Ho && xo < sh.Wo;
+}
+
+// one vector RED of 4 f32 (red.global.add.v4.f32, sm_90)
+__device__ __forceinline__ void red_add4(float* p, float a, float b, float c, float d) {
+  atomicAdd(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
+}
+
+// One block per tile of TILE_Z x TILE_Y x TILE_X output points of one sample;
+// 8 lanes per point, lane j holding channels c0 + 4j .. c0 + 4j + 3 of the
+// chunk c0.  tile_paths, where not null, counts the tiles by path:
+// [shared box, global REDs, no tap inside the volume].
+__global__ void __launch_bounds__(BWD_THREADS) warp3d_backward_kernel(
+    const float* __restrict__ vol_cl, const float* __restrict__ grid,
+    const float* __restrict__ gout, float* __restrict__ acc, float* __restrict__ ggrid,
+    int* __restrict__ tile_paths, BwdShape sh) {
+  extern __shared__ float box_acc[];
+  __shared__ int box[6];  // lowest z, y, x and highest z, y, x voxel of a valid tap
+
+  int t = blockIdx.x;
+  const int tx = t % sh.tiles_x;
+  t /= sh.tiles_x;
+  const int ty = t % sh.tiles_y;
+  t /= sh.tiles_y;
+  const int tz = t % sh.tiles_z;
+  const int64_t b = t / sh.tiles_z;
+  const int64_t P = (int64_t)sh.Do * sh.Ho * sh.Wo;
+  const int64_t S = (int64_t)sh.D * sh.H * sh.W;
+  const float* gb = grid + b * P * 3;
+
+  // 1. the tile's box: the voxels its points' valid taps span.  It reads
+  // the grid alone, so it runs while the prep kernel drains.
+  if (threadIdx.x < 3) {
+    box[threadIdx.x] = INT_MAX;
+    box[threadIdx.x + 3] = INT_MIN;
+  }
+  __syncthreads();
+  for (int i0 = 0; i0 < TILE_POINTS; i0 += BWD_THREADS) {
+    int lo[3] = {INT_MAX, INT_MAX, INT_MAX}, hi[3] = {INT_MIN, INT_MIN, INT_MIN};
+    int64_t p;
+    if (tile_point(i0 + threadIdx.x, tz, ty, tx, sh, p)) {
+      const float* g = gb + p * 3;
+      const Axis a[3] = {axis_taps(g[2], sh.D), axis_taps(g[1], sh.H), axis_taps(g[0], sh.W)};
+      if ((a[0].v0 || a[0].v1) && (a[1].v0 || a[1].v1) && (a[2].v0 || a[2].v1)) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          lo[d] = a[d].v0 ? a[d].i0 : a[d].i0 + 1;
+          hi[d] = a[d].v1 ? a[d].i0 + 1 : a[d].i0;
+        }
       }
     }
-    sx += go * px;
-    sy += go * py;
-    sz += go * pz;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      lo[d] = __reduce_min_sync(0xffffffffu, lo[d]);
+      hi[d] = __reduce_max_sync(0xffffffffu, hi[d]);
+    }
+    if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        atomicMin(&box[d], lo[d]);
+        atomicMax(&box[d + 3], hi[d]);
+      }
+    }
   }
-  float* gg = ggrid + idx * 3;
-  gg[0] = sx * (float)W * 0.5f;
-  gg[1] = sy * (float)H * 0.5f;
-  gg[2] = sz * (float)D * 0.5f;
+  __syncthreads();
+  const bool empty = box[3] < box[0];
+  const int z0 = box[0], y0 = box[1], x0 = box[2];
+  const int ny = empty ? 0 : box[4] - y0 + 1, nx = empty ? 0 : box[5] - x0 + 1;
+  const int64_t nvox = empty ? 0 : (int64_t)(box[3] - z0 + 1) * ny * nx;
+  const int cs = min(sh.Cp, CHUNK) + 1;  // floats per box voxel: odd, so lanes miss each other's banks
+  const bool in_box = !empty && nvox * cs * (int64_t)sizeof(float) <= BOX_BYTES;
+  if (tile_paths != nullptr && threadIdx.x == 0)
+    atomicAdd(tile_paths + (empty ? 2 : in_box ? 0 : 1), 1);
+
+  wait_for_prior_grid();  // vol_cl written, acc zeroed
+  allow_next_grid();
+
+  const int lane = threadIdx.x % LANES, slot = threadIdx.x / LANES;
+  const float* vb = vol_cl + b * S * sh.Cp;
+  float* ab = acc + b * S * sh.Cp;
+  const float* gob = gout + b * sh.C * P;
+  float sx[PASSES], sy[PASSES], sz[PASSES];
+#pragma unroll
+  for (int q = 0; q < PASSES; ++q) sx[q] = sy[q] = sz[q] = 0.0f;
+
+  for (int c0 = 0; c0 < sh.C; c0 += CHUNK) {
+    if (in_box) {
+      for (int e = threadIdx.x; e < (int)nvox * cs; e += BWD_THREADS) box_acc[e] = 0.0f;
+      __syncthreads();
+    }
+    const int c = c0 + 4 * lane;
+#pragma unroll
+    for (int q = 0; q < PASSES; ++q) {
+      int64_t p;
+      if (!tile_point(q * POINTS_PER_PASS + slot, tz, ty, tx, sh, p) || c >= sh.C) continue;
+      const float* g = gb + p * 3;
+      const Axis ax = axis_taps(g[0], sh.W);
+      const Axis ay = axis_taps(g[1], sh.H);
+      const Axis az = axis_taps(g[2], sh.D);
+      float go[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) go[e] = c + e < sh.C ? gob[(int64_t)(c + e) * P + p] : 0.0f;
+      float px = 0.0f, py = 0.0f, pz = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
+        if (!((dz ? az.v1 : az.v0) && (dy ? ay.v1 : ay.v0) && (dx ? ax.v1 : ax.v0))) continue;
+        const float wz = dz ? az.w1 : az.w0;
+        const float wy = dy ? ay.w1 : ay.w0;
+        const float wx = dx ? ax.w1 : ax.w0;
+        const int zi = az.i0 + dz, yi = ay.i0 + dy, xi = ax.i0 + dx;
+        const int64_t vox = ((int64_t)zi * sh.H + yi) * sh.W + xi;
+        const float4 v = __ldg(reinterpret_cast<const float4*>(vb + vox * sh.Cp + c));
+        const float s = go[0] * v.x + go[1] * v.y + go[2] * v.z + go[3] * v.w;
+        px += (dx ? 1.0f : -1.0f) * wy * wz * s;
+        py += (dy ? 1.0f : -1.0f) * wx * wz * s;
+        pz += (dz ? 1.0f : -1.0f) * wx * wy * s;
+        const float w = wz * wy * wx;
+        if (in_box) {
+          float* a = box_acc + (((zi - z0) * ny + (yi - y0)) * nx + (xi - x0)) * cs + 4 * lane;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) atomicAdd(a + e, w * go[e]);
+        } else {
+          red_add4(ab + vox * sh.Cp + c, w * go[0], w * go[1], w * go[2], w * go[3]);
+        }
+      }
+      sx[q] += px;
+      sy[q] += py;
+      sz[q] += pz;
+    }
+    if (in_box) {
+      // flush: one vector RED per box voxel and 4 channels, where any is not 0
+      __syncthreads();
+      for (int e = threadIdx.x; e < (int)nvox * LANES; e += BWD_THREADS) {
+        const int j = e % LANES, v = e / LANES;
+        if (c0 + 4 * j >= sh.C) continue;
+        const float* a = box_acc + v * cs + 4 * j;
+        const float a0 = a[0], a1 = a[1], a2 = a[2], a3 = a[3];
+        if (a0 == 0.0f && a1 == 0.0f && a2 == 0.0f && a3 == 0.0f) continue;
+        const int xi = x0 + v % nx, yi = y0 + (v / nx) % ny, zi = z0 + v / (nx * ny);
+        red_add4(ab + (((int64_t)zi * sh.H + yi) * sh.W + xi) * sh.Cp + c0 + 4 * j, a0, a1, a2, a3);
+      }
+      __syncthreads();  // before the next chunk zeroes the box
+    }
+  }
+
+  // grad_grid: the sum over a point's 8 lanes, written by its first lane
+#pragma unroll
+  for (int q = 0; q < PASSES; ++q) {
+#pragma unroll
+    for (int o = 1; o < LANES; o <<= 1) {
+      sx[q] += __shfl_xor_sync(0xffffffffu, sx[q], o);
+      sy[q] += __shfl_xor_sync(0xffffffffu, sy[q], o);
+      sz[q] += __shfl_xor_sync(0xffffffffu, sz[q], o);
+    }
+    int64_t p;
+    if (lane == 0 && tile_point(q * POINTS_PER_PASS + slot, tz, ty, tx, sh, p)) {
+      float* gg = ggrid + (b * P + p) * 3;
+      gg[0] = sx[q] * (float)sh.W * 0.5f;
+      gg[1] = sy[q] * (float)sh.H * 0.5f;
+      gg[2] = sz[q] * (float)sh.D * 0.5f;
+    }
+  }
 }
 
 }  // namespace
@@ -258,18 +447,48 @@ extern "C" const char* warp3d_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// f32 only.  vol (B, C, D, H, W), grid (B, P, 3), grad_out (B, C, P); writes
-// grad_grid (B, P, 3) and adds into grad_vol (B, C, D, H, W), which the caller
-// zeroes; all contiguous.  Returns the cudaError_t of the launch.
+// f32 only, all contiguous: vol (B, C, D, H, W), grid (B, Do, Ho, Wo, 3),
+// grad_out (B, C, Do, Ho, Wo); writes grad_vol (B, C, D, H, W) and
+// grad_grid (B, Do, Ho, Wo, 3) whole.  scratch holds 2 * B * D * H * W * Cp
+// floats (the channels-last volume, then the accumulator), Cp = C rounded up
+// to a multiple of 4.  tile_paths: null, or 3 zeroed ints that count the
+// tiles by path.  Three kernels, chained: prep, the tiles, finish.  Returns
+// the cudaError_t of the launches (0 on success).
 extern "C" int warp3d_backward(const void* vol, const void* grid, const void* grad_out,
-                               void* grad_vol, void* grad_grid, int B, int C, int D,
-                               int H, int W, int P, void* stream) {
-  const int64_t n = (int64_t)B * P;
-  if (n == 0) return 0;
-  const unsigned blocks = (unsigned)((n + BWD_THREADS - 1) / BWD_THREADS);
-  warp3d_backward_kernel<<<blocks, BWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(vol), static_cast<const float*>(grid),
-      static_cast<const float*>(grad_out), static_cast<float*>(grad_vol),
-      static_cast<float*>(grad_grid), B, C, D, H, W, P);
-  return (int)cudaGetLastError();
+                               void* grad_vol, void* grad_grid, void* scratch, void* tile_paths,
+                               int B, int C, int Cp, int D, int H, int W, int Do, int Ho, int Wo,
+                               void* stream) {
+  const int64_t S = (int64_t)D * H * W;
+  if ((int64_t)B * C * Do * Ho * Wo == 0 || S == 0) return 0;
+  if (Cp % 4 != 0 || Cp < C || B > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* vol_cl = static_cast<float*>(scratch);
+  float* acc = vol_cl + (int64_t)B * S * Cp;
+  const dim3 tgrid((unsigned)((S + TT - 1) / TT), (unsigned)((Cp + TT - 1) / TT), (unsigned)B);
+  bwd_prep_kernel<<<tgrid, dim3(TT, 8), 0, s>>>(static_cast<const float*>(vol), vol_cl, acc, C,
+                                                 Cp, S);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(warp3d_backward_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, BOX_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const BwdShape sh{C,  Cp, D,  H,  W, Do, Ho, Wo, (Do + TILE_Z - 1) / TILE_Z,
+                    (Ho + TILE_Y - 1) / TILE_Y, (Wo + TILE_X - 1) / TILE_X};
+  const int64_t tiles = (int64_t)B * sh.tiles_z * sh.tiles_y * sh.tiles_x;
+  err = launch_after_prior(warp3d_backward_kernel, dim3((unsigned)tiles), dim3(BWD_THREADS),
+                           BOX_BYTES, s, static_cast<const float*>(vol_cl),
+                           static_cast<const float*>(grid),
+                           static_cast<const float*>(grad_out), acc,
+                           static_cast<float*>(grad_grid), static_cast<int*>(tile_paths), sh);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_after_prior(bwd_finish_kernel, tgrid, dim3(TT, 8), 0, s,
+                                 static_cast<const float*>(acc), static_cast<float*>(grad_vol),
+                                 C, Cp, S);
+}
+
+// The backward's compile-time constants, for callers that build fields
+// around its tiles: {TILE_Z, TILE_Y, TILE_X, BWD_THREADS, BOX_BYTES, CHUNK}.
+extern "C" void warp3d_backward_constants(int* out) {
+  const int v[6] = {TILE_Z, TILE_Y, TILE_X, BWD_THREADS, BOX_BYTES, CHUNK};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
 }

@@ -38,7 +38,7 @@ WARP3D = CudaKernel(
 
 WARP3D_BWD = CudaKernel(
     "warp3d.cu", "warp3d_backward",
-    [_c_ptr] * 5 + [_c_int] * 6 + [_c_ptr],
+    [_c_ptr] * 7 + [_c_int] * 9 + [_c_ptr],
 )
 
 WARP3D_Q = CudaKernel(
@@ -93,14 +93,31 @@ def _launch_forward(vol: torch.Tensor, grid: torch.Tensor,
         out[0, 0].numel())
 
 
+def backward_scratch(vol: torch.Tensor) -> tuple[int, torch.Tensor]:
+    """The backward kernel's scratch: (Cp, buffer).  Cp is C rounded up to
+    a multiple of 4, so a voxel's channels start on 16 bytes; the buffer
+    (2, B, D, H, W, Cp) f32 holds the volume laid out channels last, then
+    the grad_vol accumulator in that layout."""
+    b, c, d, h, w = vol.shape
+    cp = -(-c // 4) * 4
+    return cp, torch.empty((2, b, d, h, w, cp), dtype=torch.float32,
+                           device=vol.device)
+
+
 def _launch_backward(vol: torch.Tensor, grid: torch.Tensor,
                      grad_out: torch.Tensor, grad_vol: torch.Tensor,
-                     grad_grid: torch.Tensor) -> None:
+                     grad_grid: torch.Tensor,
+                     tile_paths: torch.Tensor | None = None) -> None:
+    """Launch the backward on all-written outputs.  ``tile_paths``: None,
+    or 3 zeroed int32 that count the kernel's tiles by path (shared box,
+    global REDs, no tap inside the volume)."""
     b, c, d, h, w = vol.shape
+    cp, scratch = backward_scratch(vol)
     WARP3D_BWD.launch_on(
         vol.device, vol.data_ptr(), grid.data_ptr(), grad_out.data_ptr(),
-        grad_vol.data_ptr(), grad_grid.data_ptr(), b, c, d, h, w,
-        grad_out[0, 0].numel())
+        grad_vol.data_ptr(), grad_grid.data_ptr(), scratch.data_ptr(),
+        0 if tile_paths is None else tile_paths.data_ptr(), b, c, cp, d, h,
+        w, *grid.shape[1:4])
 
 
 def _forward(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
@@ -116,7 +133,8 @@ def warp3d_backward_cuda(vol: torch.Tensor, grid: torch.Tensor,
                          grad_out: torch.Tensor):
     """Launch the backward kernel: (grad_vol, grad_grid) of the warp at
     ``vol`` / ``grid`` for ``grad_out`` (B, C, Do, Ho, Wo), all f32 and
-    contiguous on one card.  grad_vol is accumulated into zeros."""
+    contiguous on one card.  The kernel writes both outputs whole, so they
+    are allocated empty."""
     _check_cuda_args(vol, grid)
     if any(t.dtype != torch.float32 for t in (vol, grid, grad_out)):
         raise TypeError(
@@ -129,9 +147,12 @@ def warp3d_backward_cuda(vol: torch.Tensor, grid: torch.Tensor,
             f"warp3d_backward wants a contiguous grad_out "
             f"{(*vol.shape[:2], *grid.shape[1:4])} on {vol.device}, got "
             f"{tuple(grad_out.shape)} on {grad_out.device}")
-    grad_vol, grad_grid = torch.zeros_like(vol), torch.zeros_like(grid)
-    if grad_out.numel():
+    grad_vol, grad_grid = torch.empty_like(vol), torch.empty_like(grid)
+    if grad_out.numel() and vol.numel():
         _launch_backward(vol, grid, grad_out, grad_vol, grad_grid)
+    else:  # nothing to sample: both gradients are 0
+        grad_vol.zero_()
+        grad_grid.zero_()
     return grad_vol, grad_grid
 
 
