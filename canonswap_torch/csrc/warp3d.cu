@@ -164,19 +164,22 @@ cudaError_t launch(const void* vol, const void* grid, void* out, int B, int C, i
 // DESIGN-HEADER
 
 #ifndef WARP_BWD_TILE_Z
-#define WARP_BWD_TILE_Z 2
+#define WARP_BWD_TILE_Z 1
 #endif
 #ifndef WARP_BWD_TILE_Y
-#define WARP_BWD_TILE_Y 8
+#define WARP_BWD_TILE_Y 4
 #endif
 #ifndef WARP_BWD_TILE_X
-#define WARP_BWD_TILE_X 8
+#define WARP_BWD_TILE_X 32
 #endif
 #ifndef WARP_BWD_THREADS
 #define WARP_BWD_THREADS 256
 #endif
-#ifndef WARP_BWD_BOX_BYTES
-#define WARP_BWD_BOX_BYTES 114688
+#ifndef WARP_BWD_BOX_VOXELS
+#define WARP_BWD_BOX_VOXELS 2048
+#endif
+#ifndef WARP_BWD_MIN_BLOCKS
+#define WARP_BWD_MIN_BLOCKS 2
 #endif
 
 constexpr int TILE_Z = WARP_BWD_TILE_Z, TILE_Y = WARP_BWD_TILE_Y, TILE_X = WARP_BWD_TILE_X;
@@ -186,10 +189,11 @@ constexpr int LANES = 8;          // lanes per output point, 4 channels each
 constexpr int CHUNK = 4 * LANES;  // channels per sweep over the tile
 constexpr int POINTS_PER_PASS = BWD_THREADS / LANES;
 constexpr int PASSES = (TILE_POINTS + POINTS_PER_PASS - 1) / POINTS_PER_PASS;
-constexpr int BOX_BYTES = WARP_BWD_BOX_BYTES;  // the shared box accumulator's budget
-constexpr int TT = 32;            // transpose tile: 32 voxels x 32 channels
+constexpr int BOX_VOXELS = WARP_BWD_BOX_VOXELS;  // the largest box summed in shared memory
+constexpr int SCAN_ITEMS = (BOX_VOXELS + 1 + BWD_THREADS - 1) / BWD_THREADS;
+constexpr int TT = 32;  // transpose tile: 32 voxels x 32 channels
 static_assert(BWD_THREADS % 32 == 0 && BWD_THREADS <= 1024, "whole warps");
-static_assert(BOX_BYTES + 64 <= 232448, "a block's shared memory");
+static_assert(TILE_POINTS <= BWD_THREADS, "one thread per tile point when sorting");
 
 struct BwdShape {
   int C, Cp, D, H, W, Do, Ho, Wo, tiles_z, tiles_y, tiles_x;
@@ -265,16 +269,59 @@ __device__ __forceinline__ void red_add4(float* p, float a, float b, float c, fl
   atomicAdd(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
 }
 
-// One block per tile of TILE_Z x TILE_Y x TILE_X output points of one sample;
-// 8 lanes per point, lane j holding channels c0 + 4j .. c0 + 4j + 3 of the
-// chunk c0.  tile_paths, where not null, counts the tiles by path:
-// [shared box, global REDs, no tap inside the volume].
-__global__ void __launch_bounds__(BWD_THREADS) warp3d_backward_kernel(
+// s[0..n) -> its exclusive prefix sums, in place; every thread of the
+// block calls it, n <= SCAN_ITEMS * BWD_THREADS
+__device__ void block_exclusive_scan(int* s, int n, int* warp_sums) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int v[SCAN_ITEMS], sum = 0;
+#pragma unroll
+  for (int it = 0; it < SCAN_ITEMS; ++it) {
+    const int idx = tid * SCAN_ITEMS + it;
+    v[it] = idx < n ? s[idx] : 0;
+    sum += v[it];
+  }
+  int inc = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += t;
+  }
+  if (lane == 31) warp_sums[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int own = lane < BWD_THREADS / 32 ? warp_sums[lane] : 0;
+    int w = own;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += t;
+    }
+    if (lane < BWD_THREADS / 32) warp_sums[lane] = w - own;
+  }
+  __syncthreads();
+  int run = warp_sums[warp] + inc - sum;
+#pragma unroll
+  for (int it = 0; it < SCAN_ITEMS; ++it) {
+    const int idx = tid * SCAN_ITEMS + it;
+    if (idx < n) s[idx] = run;
+    run += v[it];
+  }
+  __syncthreads();
+}
+
+// One block per tile of TILE_Z x TILE_Y x TILE_X output points of one
+// sample.  tile_paths, where not null, counts the tiles by path: [shared
+// box, global REDs, no tap inside the volume].
+__global__ void __launch_bounds__(BWD_THREADS, WARP_BWD_MIN_BLOCKS) warp3d_backward_kernel(
     const float* __restrict__ vol_cl, const float* __restrict__ grid,
     const float* __restrict__ gout, float* __restrict__ acc, float* __restrict__ ggrid,
     int* __restrict__ tile_paths, BwdShape sh) {
-  extern __shared__ float box_acc[];
   __shared__ int box[6];  // lowest z, y, x and highest z, y, x voxel of a valid tap
+  __shared__ int bucket[BOX_VOXELS + 1];          // per box voxel: a count, then its first entry
+  __shared__ int entry[TILE_POINTS * 8];          // point * 8 + corner, grouped by voxel
+  __shared__ float weight[TILE_POINTS * 8];       // w_k of point i at i * 8 + k
+  __shared__ float go_s[CHUNK][TILE_POINTS + 1];  // grad_out of the chunk's channels
+  __shared__ int warp_sums[BWD_THREADS / 32];
 
   int t = blockIdx.x;
   const int tx = t % sh.tiles_x;
@@ -286,34 +333,38 @@ __global__ void __launch_bounds__(BWD_THREADS) warp3d_backward_kernel(
   const int64_t P = (int64_t)sh.Do * sh.Ho * sh.Wo;
   const int64_t S = (int64_t)sh.D * sh.H * sh.W;
   const float* gb = grid + b * P * 3;
+  const int tid = threadIdx.x;
 
-  // 1. the tile's box: the voxels its points' valid taps span.  It reads
-  // the grid alone, so it runs while the prep kernel drains.
-  if (threadIdx.x < 3) {
-    box[threadIdx.x] = INT_MAX;
-    box[threadIdx.x + 3] = INT_MIN;
+  // 1. thread i < TILE_POINTS takes point i: its taps, and the tile's box,
+  // the voxels its valid taps span.  Steps 1 and 2 read the grid alone, so
+  // they run while the prep kernel drains.
+  if (tid < 3) {
+    box[tid] = INT_MAX;
+    box[tid + 3] = INT_MIN;
+  }
+  int64_t p;
+  Axis a[3];  // z, y, x
+  bool any = false;
+  if (tile_point(tid, tz, ty, tx, sh, p)) {
+    const float* g = gb + p * 3;
+    a[0] = axis_taps(g[2], sh.D);
+    a[1] = axis_taps(g[1], sh.H);
+    a[2] = axis_taps(g[0], sh.W);
+    any = (a[0].v0 || a[0].v1) && (a[1].v0 || a[1].v1) && (a[2].v0 || a[2].v1);
   }
   __syncthreads();
-  for (int i0 = 0; i0 < TILE_POINTS; i0 += BWD_THREADS) {
+  {
     int lo[3] = {INT_MAX, INT_MAX, INT_MAX}, hi[3] = {INT_MIN, INT_MIN, INT_MIN};
-    int64_t p;
-    if (tile_point(i0 + threadIdx.x, tz, ty, tx, sh, p)) {
-      const float* g = gb + p * 3;
-      const Axis a[3] = {axis_taps(g[2], sh.D), axis_taps(g[1], sh.H), axis_taps(g[0], sh.W)};
-      if ((a[0].v0 || a[0].v1) && (a[1].v0 || a[1].v1) && (a[2].v0 || a[2].v1)) {
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          lo[d] = a[d].v0 ? a[d].i0 : a[d].i0 + 1;
-          hi[d] = a[d].v1 ? a[d].i0 + 1 : a[d].i0;
-        }
-      }
-    }
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
+      if (any) {
+        lo[d] = a[d].v0 ? a[d].i0 : a[d].i0 + 1;
+        hi[d] = a[d].v1 ? a[d].i0 + 1 : a[d].i0;
+      }
       lo[d] = __reduce_min_sync(0xffffffffu, lo[d]);
       hi[d] = __reduce_max_sync(0xffffffffu, hi[d]);
     }
-    if ((threadIdx.x & 31) == 0) {
+    if ((tid & 31) == 0) {
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
         atomicMin(&box[d], lo[d]);
@@ -325,16 +376,46 @@ __global__ void __launch_bounds__(BWD_THREADS) warp3d_backward_kernel(
   const bool empty = box[3] < box[0];
   const int z0 = box[0], y0 = box[1], x0 = box[2];
   const int ny = empty ? 0 : box[4] - y0 + 1, nx = empty ? 0 : box[5] - x0 + 1;
-  const int64_t nvox = empty ? 0 : (int64_t)(box[3] - z0 + 1) * ny * nx;
-  const int cs = min(sh.Cp, CHUNK) + 1;  // floats per box voxel: odd, so lanes miss each other's banks
-  const bool in_box = !empty && nvox * cs * (int64_t)sizeof(float) <= BOX_BYTES;
-  if (tile_paths != nullptr && threadIdx.x == 0)
-    atomicAdd(tile_paths + (empty ? 2 : in_box ? 0 : 1), 1);
+  const int64_t nvox64 = empty ? 0 : (int64_t)(box[3] - z0 + 1) * ny * nx;
+  const bool in_box = !empty && nvox64 <= BOX_VOXELS;
+  const int nvox = in_box ? (int)nvox64 : 0;
+  if (tile_paths != nullptr && tid == 0) atomicAdd(tile_paths + (empty ? 2 : in_box ? 0 : 1), 1);
+
+  // 2. shared path: the tile's (point, corner) pairs sorted by box voxel: a
+  // count per voxel (a pair's rank is what its atomicAdd returns), an
+  // exclusive scan, then each pair written at its voxel's start plus rank
+  if (in_box) {
+    for (int e = tid; e <= nvox; e += BWD_THREADS) bucket[e] = 0;
+    __syncthreads();
+    int vloc[8], rank[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
+      vloc[k] = -1;
+      if (any && (dz ? a[0].v1 : a[0].v0) && (dy ? a[1].v1 : a[1].v0) &&
+          (dx ? a[2].v1 : a[2].v0)) {
+        vloc[k] = ((a[0].i0 + dz - z0) * ny + (a[1].i0 + dy - y0)) * nx + (a[2].i0 + dx - x0);
+        rank[k] = atomicAdd(&bucket[vloc[k]], 1);
+        weight[tid * 8 + k] =
+            (dz ? a[0].w1 : a[0].w0) * (dy ? a[1].w1 : a[1].w0) * (dx ? a[2].w1 : a[2].w0);
+      }
+    }
+    __syncthreads();
+    block_exclusive_scan(bucket, nvox + 1, warp_sums);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (vloc[k] >= 0) entry[bucket[vloc[k]] + rank[k]] = tid * 8 + k;
+  }
 
   wait_for_prior_grid();  // vol_cl written, acc zeroed
   allow_next_grid();
 
-  const int lane = threadIdx.x % LANES, slot = threadIdx.x / LANES;
+  // 3. per chunk of 32 channels: grad_out staged in shared memory; 8 lanes
+  // per point (lane j: channels c0 + 4j .. + 3) gather the 8 corners for
+  // grad_grid and, on the global path, scatter w_k * grad_out with vector
+  // REDs; on the shared path each (box voxel, 4 channels) sums its pairs
+  // and adds the sum with one vector RED
+  const int lane = tid % LANES, slot = tid / LANES;
   const float* vb = vol_cl + b * S * sh.Cp;
   float* ab = acc + b * S * sh.Cp;
   const float* gob = gout + b * sh.C * P;
@@ -343,22 +424,26 @@ __global__ void __launch_bounds__(BWD_THREADS) warp3d_backward_kernel(
   for (int q = 0; q < PASSES; ++q) sx[q] = sy[q] = sz[q] = 0.0f;
 
   for (int c0 = 0; c0 < sh.C; c0 += CHUNK) {
-    if (in_box) {
-      for (int e = threadIdx.x; e < (int)nvox * cs; e += BWD_THREADS) box_acc[e] = 0.0f;
-      __syncthreads();
+    __syncthreads();  // entries written; the last chunk's go_s read
+    for (int e = tid; e < CHUNK * TILE_POINTS; e += BWD_THREADS) {
+      const int r = e / TILE_POINTS, i = e % TILE_POINTS;
+      int64_t pi;
+      go_s[r][i] =
+          c0 + r < sh.C && tile_point(i, tz, ty, tx, sh, pi) ? gob[(int64_t)(c0 + r) * P + pi] : 0.0f;
     }
+    __syncthreads();
     const int c = c0 + 4 * lane;
 #pragma unroll
     for (int q = 0; q < PASSES; ++q) {
-      int64_t p;
-      if (!tile_point(q * POINTS_PER_PASS + slot, tz, ty, tx, sh, p) || c >= sh.C) continue;
-      const float* g = gb + p * 3;
+      const int i = q * POINTS_PER_PASS + slot;
+      int64_t pi;
+      if (!tile_point(i, tz, ty, tx, sh, pi) || c >= sh.C) continue;
+      const float* g = gb + pi * 3;
       const Axis ax = axis_taps(g[0], sh.W);
       const Axis ay = axis_taps(g[1], sh.H);
       const Axis az = axis_taps(g[2], sh.D);
-      float go[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) go[e] = c + e < sh.C ? gob[(int64_t)(c + e) * P + p] : 0.0f;
+      const float go0 = go_s[4 * lane][i], go1 = go_s[4 * lane + 1][i];
+      const float go2 = go_s[4 * lane + 2][i], go3 = go_s[4 * lane + 3][i];
       float px = 0.0f, py = 0.0f, pz = 0.0f;
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
@@ -367,20 +452,15 @@ __global__ void __launch_bounds__(BWD_THREADS) warp3d_backward_kernel(
         const float wz = dz ? az.w1 : az.w0;
         const float wy = dy ? ay.w1 : ay.w0;
         const float wx = dx ? ax.w1 : ax.w0;
-        const int zi = az.i0 + dz, yi = ay.i0 + dy, xi = ax.i0 + dx;
-        const int64_t vox = ((int64_t)zi * sh.H + yi) * sh.W + xi;
+        const int64_t vox = ((int64_t)(az.i0 + dz) * sh.H + (ay.i0 + dy)) * sh.W + (ax.i0 + dx);
         const float4 v = __ldg(reinterpret_cast<const float4*>(vb + vox * sh.Cp + c));
-        const float s = go[0] * v.x + go[1] * v.y + go[2] * v.z + go[3] * v.w;
+        const float s = go0 * v.x + go1 * v.y + go2 * v.z + go3 * v.w;
         px += (dx ? 1.0f : -1.0f) * wy * wz * s;
         py += (dy ? 1.0f : -1.0f) * wx * wz * s;
         pz += (dz ? 1.0f : -1.0f) * wx * wy * s;
-        const float w = wz * wy * wx;
-        if (in_box) {
-          float* a = box_acc + (((zi - z0) * ny + (yi - y0)) * nx + (xi - x0)) * cs + 4 * lane;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) atomicAdd(a + e, w * go[e]);
-        } else {
-          red_add4(ab + vox * sh.Cp + c, w * go[0], w * go[1], w * go[2], w * go[3]);
+        if (!in_box) {
+          const float w = wz * wy * wx;
+          red_add4(ab + vox * sh.Cp + c, w * go0, w * go1, w * go2, w * go3);
         }
       }
       sx[q] += px;
@@ -388,18 +468,22 @@ __global__ void __launch_bounds__(BWD_THREADS) warp3d_backward_kernel(
       sz[q] += pz;
     }
     if (in_box) {
-      // flush: one vector RED per box voxel and 4 channels, where any is not 0
-      __syncthreads();
-      for (int e = threadIdx.x; e < (int)nvox * LANES; e += BWD_THREADS) {
-        const int j = e % LANES, v = e / LANES;
-        if (c0 + 4 * j >= sh.C) continue;
-        const float* a = box_acc + v * cs + 4 * j;
-        const float a0 = a[0], a1 = a[1], a2 = a[2], a3 = a[3];
-        if (a0 == 0.0f && a1 == 0.0f && a2 == 0.0f && a3 == 0.0f) continue;
+      for (int e = tid; e < nvox * LANES; e += BWD_THREADS) {
+        const int j = e % LANES, v = e / LANES, cj = c0 + 4 * j;
+        if (cj >= sh.C) continue;
+        float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+        for (int n = bucket[v]; n < bucket[v + 1]; ++n) {
+          const int id = entry[n], i = id >> 3;
+          const float w = weight[id];
+          s0 += w * go_s[4 * j][i];
+          s1 += w * go_s[4 * j + 1][i];
+          s2 += w * go_s[4 * j + 2][i];
+          s3 += w * go_s[4 * j + 3][i];
+        }
+        if (s0 == 0.0f && s1 == 0.0f && s2 == 0.0f && s3 == 0.0f) continue;
         const int xi = x0 + v % nx, yi = y0 + (v / nx) % ny, zi = z0 + v / (nx * ny);
-        red_add4(ab + (((int64_t)zi * sh.H + yi) * sh.W + xi) * sh.Cp + c0 + 4 * j, a0, a1, a2, a3);
+        red_add4(ab + (((int64_t)zi * sh.H + yi) * sh.W + xi) * sh.Cp + cj, s0, s1, s2, s3);
       }
-      __syncthreads();  // before the next chunk zeroes the box
     }
   }
 
@@ -412,9 +496,9 @@ __global__ void __launch_bounds__(BWD_THREADS) warp3d_backward_kernel(
       sy[q] += __shfl_xor_sync(0xffffffffu, sy[q], o);
       sz[q] += __shfl_xor_sync(0xffffffffu, sz[q], o);
     }
-    int64_t p;
-    if (lane == 0 && tile_point(q * POINTS_PER_PASS + slot, tz, ty, tx, sh, p)) {
-      float* gg = ggrid + (b * P + p) * 3;
+    int64_t pi;
+    if (lane == 0 && tile_point(q * POINTS_PER_PASS + slot, tz, ty, tx, sh, pi)) {
+      float* gg = ggrid + (b * P + pi) * 3;
       gg[0] = sx[q] * (float)sh.W * 0.5f;
       gg[1] = sy[q] * (float)sh.H * 0.5f;
       gg[2] = sz[q] * (float)sh.D * 0.5f;
@@ -469,14 +553,11 @@ extern "C" int warp3d_backward(const void* vol, const void* grid, const void* gr
                                                  Cp, S);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(warp3d_backward_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, BOX_BYTES);
-  if (err != cudaSuccess) return (int)err;
   const BwdShape sh{C,  Cp, D,  H,  W, Do, Ho, Wo, (Do + TILE_Z - 1) / TILE_Z,
                     (Ho + TILE_Y - 1) / TILE_Y, (Wo + TILE_X - 1) / TILE_X};
   const int64_t tiles = (int64_t)B * sh.tiles_z * sh.tiles_y * sh.tiles_x;
   err = launch_after_prior(warp3d_backward_kernel, dim3((unsigned)tiles), dim3(BWD_THREADS),
-                           BOX_BYTES, s, static_cast<const float*>(vol_cl),
+                           0, s, static_cast<const float*>(vol_cl),
                            static_cast<const float*>(grid),
                            static_cast<const float*>(grad_out), acc,
                            static_cast<float*>(grad_grid), static_cast<int*>(tile_paths), sh);
@@ -487,8 +568,8 @@ extern "C" int warp3d_backward(const void* vol, const void* grid, const void* gr
 }
 
 // The backward's compile-time constants, for callers that build fields
-// around its tiles: {TILE_Z, TILE_Y, TILE_X, BWD_THREADS, BOX_BYTES, CHUNK}.
+// around its tiles: {TILE_Z, TILE_Y, TILE_X, BWD_THREADS, BOX_VOXELS, CHUNK}.
 extern "C" void warp3d_backward_constants(int* out) {
-  const int v[6] = {TILE_Z, TILE_Y, TILE_X, BWD_THREADS, BOX_BYTES, CHUNK};
+  const int v[6] = {TILE_Z, TILE_Y, TILE_X, BWD_THREADS, BOX_VOXELS, CHUNK};
   for (int i = 0; i < 6; ++i) out[i] = v[i];
 }

@@ -4,7 +4,7 @@
     python -m canonswap_torch.tools.warp_bwd_sweep
 
 Builds the source once per variant (``-D`` of WARP_BWD_TILE_Z / _Y / _X,
-WARP_BWD_THREADS, WARP_BWD_BOX_BYTES; one nvcc each, all started together),
+WARP_BWD_THREADS, WARP_BWD_BOX_VOXELS, WARP_BWD_MIN_BLOCKS; one nvcc each, all started together),
 then at CANONICAL B=8 f32 ((8, 32, 16, 64, 64) volume and grad_out) on three
 fields: ``smooth`` (cell centres plus a displacement uniform in +-0.05),
 ``mixed`` (the smooth field with 10 % of its points redrawn uniform in
@@ -32,19 +32,19 @@ import torch
 from canonswap_torch.ops.cuda import warp as W
 from canonswap_torch.ops.cuda.build import CudaKernel, build_all
 
-# (tile z, y, x, threads, box bytes); the first is the source's default;
-# box bytes 0 sends every tile to the global path
+# (tile z, y, x, threads, box voxels, min blocks per SM); the first is the
+# source's default; box voxels 0 sends every tile to the global path
 VARIANTS = (
-    (2, 8, 8, 256, 114688),
-    (2, 8, 8, 512, 114688),
-    (1, 4, 32, 256, 114688),
-    (1, 8, 16, 256, 114688),
-    (4, 4, 8, 256, 114688),
-    (4, 8, 8, 256, 114688),
-    (2, 8, 8, 256, 75776),
-    (2, 8, 16, 512, 231424),
-    (2, 8, 8, 256, 0),
-    (1, 4, 32, 256, 0),
+    (1, 4, 32, 256, 2048, 2),
+    (2, 8, 8, 256, 2048, 2),
+    (1, 8, 16, 256, 2048, 2),
+    (1, 4, 32, 256, 1024, 2),
+    (1, 4, 32, 256, 2048, 3),
+    (1, 4, 32, 128, 2048, 4),
+    (1, 2, 32, 256, 1024, 2),
+    (1, 4, 32, 256, 0, 2),
+    (2, 8, 8, 256, 0, 2),
+    (1, 4, 32, 256, 0, 3),
 )
 SHAPE = (8, 32, 16, 64, 64)
 PARTS = (("prep", "bwd_prep_kernel"), ("tiles", "warp3d_backward_kernel"),
@@ -52,7 +52,8 @@ PARTS = (("prep", "bwd_prep_kernel"), ("tiles", "warp3d_backward_kernel"),
 
 
 def variant_kernel(v) -> CudaKernel:
-    names = ("TILE_Z", "TILE_Y", "TILE_X", "THREADS", "BOX_BYTES")
+    names = ("TILE_Z", "TILE_Y", "TILE_X", "THREADS", "BOX_VOXELS",
+             "MIN_BLOCKS")
     return CudaKernel("warp3d.cu", "warp3d_backward", W.WARP3D_BWD.argtypes,
                       defines=tuple(f"WARP_BWD_{n}={x}"
                                     for n, x in zip(names, v)))
