@@ -175,11 +175,11 @@ cudaError_t launch(const void* vol, const void* grid, void* out, int B, int C, i
 #ifndef WARP_BWD_THREADS
 #define WARP_BWD_THREADS 256
 #endif
-#ifndef WARP_BWD_BOX_VOXELS
-#define WARP_BWD_BOX_VOXELS 2048
-#endif
 #ifndef WARP_BWD_MIN_BLOCKS
-#define WARP_BWD_MIN_BLOCKS 2
+#define WARP_BWD_MIN_BLOCKS 3
+#endif
+#ifndef WARP_BWD_VOL_CL
+#define WARP_BWD_VOL_CL 1
 #endif
 
 constexpr int TILE_Z = WARP_BWD_TILE_Z, TILE_Y = WARP_BWD_TILE_Y, TILE_X = WARP_BWD_TILE_X;
@@ -189,11 +189,8 @@ constexpr int LANES = 8;          // lanes per output point, 4 channels each
 constexpr int CHUNK = 4 * LANES;  // channels per sweep over the tile
 constexpr int POINTS_PER_PASS = BWD_THREADS / LANES;
 constexpr int PASSES = (TILE_POINTS + POINTS_PER_PASS - 1) / POINTS_PER_PASS;
-constexpr int BOX_VOXELS = WARP_BWD_BOX_VOXELS;  // the largest box summed in shared memory
-constexpr int SCAN_ITEMS = (BOX_VOXELS + 1 + BWD_THREADS - 1) / BWD_THREADS;
 constexpr int TT = 32;  // transpose tile: 32 voxels x 32 channels
 static_assert(BWD_THREADS % 32 == 0 && BWD_THREADS <= 1024, "whole warps");
-static_assert(TILE_POINTS <= BWD_THREADS, "one thread per tile point when sorting");
 
 struct BwdShape {
   int C, Cp, D, H, W, Do, Ho, Wo, tiles_z, tiles_y, tiles_x;
@@ -224,7 +221,7 @@ __global__ void __launch_bounds__(TT * 8) bwd_prep_kernel(const float* __restric
     const int c = c0 + tx;
     if (s < S && c < Cp) {
       const int64_t o = (b * S + s) * Cp + c;
-      vol_cl[o] = t[tx][r];
+      if (WARP_BWD_VOL_CL) vol_cl[o] = t[tx][r];
       acc[o] = 0.0f;
     }
   }
@@ -269,60 +266,26 @@ __device__ __forceinline__ void red_add4(float* p, float a, float b, float c, fl
   atomicAdd(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
 }
 
-// s[0..n) -> its exclusive prefix sums, in place; every thread of the
-// block calls it, n <= SCAN_ITEMS * BWD_THREADS
-__device__ void block_exclusive_scan(int* s, int n, int* warp_sums) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int v[SCAN_ITEMS], sum = 0;
+// channels c .. c + 3 of voxel vox (those below C; the rest 0)
+__device__ __forceinline__ float4 corner4(const float* __restrict__ vsrc, int64_t vox, int c,
+                                          const BwdShape& sh, int64_t S) {
+#if WARP_BWD_VOL_CL
+  return __ldg(reinterpret_cast<const float4*>(vsrc + vox * sh.Cp + c));
+#else
+  float e[4];
 #pragma unroll
-  for (int it = 0; it < SCAN_ITEMS; ++it) {
-    const int idx = tid * SCAN_ITEMS + it;
-    v[it] = idx < n ? s[idx] : 0;
-    sum += v[it];
-  }
-  int inc = sum;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int t = __shfl_up_sync(0xffffffffu, inc, o);
-    if (lane >= o) inc += t;
-  }
-  if (lane == 31) warp_sums[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    const int own = lane < BWD_THREADS / 32 ? warp_sums[lane] : 0;
-    int w = own;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += t;
-    }
-    if (lane < BWD_THREADS / 32) warp_sums[lane] = w - own;
-  }
-  __syncthreads();
-  int run = warp_sums[warp] + inc - sum;
-#pragma unroll
-  for (int it = 0; it < SCAN_ITEMS; ++it) {
-    const int idx = tid * SCAN_ITEMS + it;
-    if (idx < n) s[idx] = run;
-    run += v[it];
-  }
-  __syncthreads();
+  for (int i = 0; i < 4; ++i) e[i] = c + i < sh.C ? __ldg(vsrc + (int64_t)(c + i) * S + vox) : 0.0f;
+  return make_float4(e[0], e[1], e[2], e[3]);
+#endif
 }
 
 // One block per tile of TILE_Z x TILE_Y x TILE_X output points of one
-// sample.  tile_paths, where not null, counts the tiles by path: [shared
-// box, global REDs, no tap inside the volume].
+// sample; 8 lanes per point, lane j holding channels c0 + 4j .. + 3 of each
+// chunk of 32.
 __global__ void __launch_bounds__(BWD_THREADS, WARP_BWD_MIN_BLOCKS) warp3d_backward_kernel(
-    const float* __restrict__ vol_cl, const float* __restrict__ grid,
+    const float* __restrict__ vsrc, const float* __restrict__ grid,
     const float* __restrict__ gout, float* __restrict__ acc, float* __restrict__ ggrid,
-    int* __restrict__ tile_paths, BwdShape sh) {
-  __shared__ int box[6];  // lowest z, y, x and highest z, y, x voxel of a valid tap
-  __shared__ int bucket[BOX_VOXELS + 1];          // per box voxel: a count, then its first entry
-  __shared__ int entry[TILE_POINTS * 8];          // point * 8 + corner, grouped by voxel
-  __shared__ float weight[TILE_POINTS * 8];       // w_k of point i at i * 8 + k
-  __shared__ float go_s[CHUNK][TILE_POINTS + 1];  // grad_out of the chunk's channels
-  __shared__ int warp_sums[BWD_THREADS / 32];
-
+    BwdShape sh) {
   int t = blockIdx.x;
   const int tx = t % sh.tiles_x;
   t /= sh.tiles_x;
@@ -332,176 +295,63 @@ __global__ void __launch_bounds__(BWD_THREADS, WARP_BWD_MIN_BLOCKS) warp3d_backw
   const int64_t b = t / sh.tiles_z;
   const int64_t P = (int64_t)sh.Do * sh.Ho * sh.Wo;
   const int64_t S = (int64_t)sh.D * sh.H * sh.W;
-  const float* gb = grid + b * P * 3;
-  const int tid = threadIdx.x;
-
-  // 1. thread i < TILE_POINTS takes point i: its taps, and the tile's box,
-  // the voxels its valid taps span.  Steps 1 and 2 read the grid alone, so
-  // they run while the prep kernel drains.
-  if (tid < 3) {
-    box[tid] = INT_MAX;
-    box[tid + 3] = INT_MIN;
-  }
-  int64_t p;
-  Axis a[3];  // z, y, x
-  bool any = false;
-  if (tile_point(tid, tz, ty, tx, sh, p)) {
-    const float* g = gb + p * 3;
-    a[0] = axis_taps(g[2], sh.D);
-    a[1] = axis_taps(g[1], sh.H);
-    a[2] = axis_taps(g[0], sh.W);
-    any = (a[0].v0 || a[0].v1) && (a[1].v0 || a[1].v1) && (a[2].v0 || a[2].v1);
-  }
-  __syncthreads();
-  {
-    int lo[3] = {INT_MAX, INT_MAX, INT_MAX}, hi[3] = {INT_MIN, INT_MIN, INT_MIN};
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      if (any) {
-        lo[d] = a[d].v0 ? a[d].i0 : a[d].i0 + 1;
-        hi[d] = a[d].v1 ? a[d].i0 + 1 : a[d].i0;
-      }
-      lo[d] = __reduce_min_sync(0xffffffffu, lo[d]);
-      hi[d] = __reduce_max_sync(0xffffffffu, hi[d]);
-    }
-    if ((tid & 31) == 0) {
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        atomicMin(&box[d], lo[d]);
-        atomicMax(&box[d + 3], hi[d]);
-      }
-    }
-  }
-  __syncthreads();
-  const bool empty = box[3] < box[0];
-  const int z0 = box[0], y0 = box[1], x0 = box[2];
-  const int ny = empty ? 0 : box[4] - y0 + 1, nx = empty ? 0 : box[5] - x0 + 1;
-  const int64_t nvox64 = empty ? 0 : (int64_t)(box[3] - z0 + 1) * ny * nx;
-  const bool in_box = !empty && nvox64 <= BOX_VOXELS;
-  const int nvox = in_box ? (int)nvox64 : 0;
-  if (tile_paths != nullptr && tid == 0) atomicAdd(tile_paths + (empty ? 2 : in_box ? 0 : 1), 1);
-
-  // 2. shared path: the tile's (point, corner) pairs sorted by box voxel: a
-  // count per voxel (a pair's rank is what its atomicAdd returns), an
-  // exclusive scan, then each pair written at its voxel's start plus rank
-  if (in_box) {
-    for (int e = tid; e <= nvox; e += BWD_THREADS) bucket[e] = 0;
-    __syncthreads();
-    int vloc[8], rank[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
-      vloc[k] = -1;
-      if (any && (dz ? a[0].v1 : a[0].v0) && (dy ? a[1].v1 : a[1].v0) &&
-          (dx ? a[2].v1 : a[2].v0)) {
-        vloc[k] = ((a[0].i0 + dz - z0) * ny + (a[1].i0 + dy - y0)) * nx + (a[2].i0 + dx - x0);
-        rank[k] = atomicAdd(&bucket[vloc[k]], 1);
-        weight[tid * 8 + k] =
-            (dz ? a[0].w1 : a[0].w0) * (dy ? a[1].w1 : a[1].w0) * (dx ? a[2].w1 : a[2].w0);
-      }
-    }
-    __syncthreads();
-    block_exclusive_scan(bucket, nvox + 1, warp_sums);
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      if (vloc[k] >= 0) entry[bucket[vloc[k]] + rank[k]] = tid * 8 + k;
-  }
-
-  wait_for_prior_grid();  // vol_cl written, acc zeroed
-  allow_next_grid();
-
-  // 3. per chunk of 32 channels: grad_out staged in shared memory; 8 lanes
-  // per point (lane j: channels c0 + 4j .. + 3) gather the 8 corners for
-  // grad_grid and, on the global path, scatter w_k * grad_out with vector
-  // REDs; on the shared path each (box voxel, 4 channels) sums its pairs
-  // and adds the sum with one vector RED
-  const int lane = tid % LANES, slot = tid / LANES;
-  const float* vb = vol_cl + b * S * sh.Cp;
+  const int lane = threadIdx.x % LANES, slot = threadIdx.x / LANES;
+#if WARP_BWD_VOL_CL
+  const float* vb = vsrc + b * S * sh.Cp;
+#else
+  const float* vb = vsrc + b * sh.C * S;
+#endif
   float* ab = acc + b * S * sh.Cp;
   const float* gob = gout + b * sh.C * P;
-  float sx[PASSES], sy[PASSES], sz[PASSES];
-#pragma unroll
-  for (int q = 0; q < PASSES; ++q) sx[q] = sy[q] = sz[q] = 0.0f;
 
-  for (int c0 = 0; c0 < sh.C; c0 += CHUNK) {
-    __syncthreads();  // entries written; the last chunk's go_s read
-    for (int e = tid; e < CHUNK * TILE_POINTS; e += BWD_THREADS) {
-      const int r = e / TILE_POINTS, i = e % TILE_POINTS;
-      int64_t pi;
-      go_s[r][i] =
-          c0 + r < sh.C && tile_point(i, tz, ty, tx, sh, pi) ? gob[(int64_t)(c0 + r) * P + pi] : 0.0f;
-    }
-    __syncthreads();
-    const int c = c0 + 4 * lane;
-#pragma unroll
-    for (int q = 0; q < PASSES; ++q) {
-      const int i = q * POINTS_PER_PASS + slot;
-      int64_t pi;
-      if (!tile_point(i, tz, ty, tx, sh, pi) || c >= sh.C) continue;
-      const float* g = gb + pi * 3;
+  wait_for_prior_grid();  // acc zeroed (and vol_cl written)
+  allow_next_grid();
+
+#pragma unroll 1
+  for (int q = 0; q < PASSES; ++q) {
+    int64_t p;
+    const bool mine = tile_point(q * POINTS_PER_PASS + slot, tz, ty, tx, sh, p);
+    float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+    if (mine) {
+      const float* g = grid + (b * P + p) * 3;
       const Axis ax = axis_taps(g[0], sh.W);
       const Axis ay = axis_taps(g[1], sh.H);
       const Axis az = axis_taps(g[2], sh.D);
-      const float go0 = go_s[4 * lane][i], go1 = go_s[4 * lane + 1][i];
-      const float go2 = go_s[4 * lane + 2][i], go3 = go_s[4 * lane + 3][i];
-      float px = 0.0f, py = 0.0f, pz = 0.0f;
+#pragma unroll 1
+      for (int c = 4 * lane; c < sh.C; c += CHUNK) {
+        float go[4];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
-        if (!((dz ? az.v1 : az.v0) && (dy ? ay.v1 : ay.v0) && (dx ? ax.v1 : ax.v0))) continue;
-        const float wz = dz ? az.w1 : az.w0;
-        const float wy = dy ? ay.w1 : ay.w0;
-        const float wx = dx ? ax.w1 : ax.w0;
-        const int64_t vox = ((int64_t)(az.i0 + dz) * sh.H + (ay.i0 + dy)) * sh.W + (ax.i0 + dx);
-        const float4 v = __ldg(reinterpret_cast<const float4*>(vb + vox * sh.Cp + c));
-        const float s = go0 * v.x + go1 * v.y + go2 * v.z + go3 * v.w;
-        px += (dx ? 1.0f : -1.0f) * wy * wz * s;
-        py += (dy ? 1.0f : -1.0f) * wx * wz * s;
-        pz += (dz ? 1.0f : -1.0f) * wx * wy * s;
-        if (!in_box) {
+        for (int e = 0; e < 4; ++e) go[e] = c + e < sh.C ? gob[(int64_t)(c + e) * P + p] : 0.0f;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
+          if (!((dz ? az.v1 : az.v0) && (dy ? ay.v1 : ay.v0) && (dx ? ax.v1 : ax.v0))) continue;
+          const float wz = dz ? az.w1 : az.w0;
+          const float wy = dy ? ay.w1 : ay.w0;
+          const float wx = dx ? ax.w1 : ax.w0;
+          const int64_t vox = ((int64_t)(az.i0 + dz) * sh.H + (ay.i0 + dy)) * sh.W + (ax.i0 + dx);
+          const float4 v = corner4(vb, vox, c, sh, S);
+          const float s = go[0] * v.x + go[1] * v.y + go[2] * v.z + go[3] * v.w;
+          sx += (dx ? 1.0f : -1.0f) * wy * wz * s;
+          sy += (dy ? 1.0f : -1.0f) * wx * wz * s;
+          sz += (dz ? 1.0f : -1.0f) * wx * wy * s;
           const float w = wz * wy * wx;
-          red_add4(ab + vox * sh.Cp + c, w * go0, w * go1, w * go2, w * go3);
+          red_add4(ab + vox * sh.Cp + c, w * go[0], w * go[1], w * go[2], w * go[3]);
         }
       }
-      sx[q] += px;
-      sy[q] += py;
-      sz[q] += pz;
     }
-    if (in_box) {
-      for (int e = tid; e < nvox * LANES; e += BWD_THREADS) {
-        const int j = e % LANES, v = e / LANES, cj = c0 + 4 * j;
-        if (cj >= sh.C) continue;
-        float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-        for (int n = bucket[v]; n < bucket[v + 1]; ++n) {
-          const int id = entry[n], i = id >> 3;
-          const float w = weight[id];
-          s0 += w * go_s[4 * j][i];
-          s1 += w * go_s[4 * j + 1][i];
-          s2 += w * go_s[4 * j + 2][i];
-          s3 += w * go_s[4 * j + 3][i];
-        }
-        if (s0 == 0.0f && s1 == 0.0f && s2 == 0.0f && s3 == 0.0f) continue;
-        const int xi = x0 + v % nx, yi = y0 + (v / nx) % ny, zi = z0 + v / (nx * ny);
-        red_add4(ab + (((int64_t)zi * sh.H + yi) * sh.W + xi) * sh.Cp + cj, s0, s1, s2, s3);
-      }
-    }
-  }
-
-  // grad_grid: the sum over a point's 8 lanes, written by its first lane
-#pragma unroll
-  for (int q = 0; q < PASSES; ++q) {
+    // grad_grid: the sum over the point's 8 lanes, written by its first lane
 #pragma unroll
     for (int o = 1; o < LANES; o <<= 1) {
-      sx[q] += __shfl_xor_sync(0xffffffffu, sx[q], o);
-      sy[q] += __shfl_xor_sync(0xffffffffu, sy[q], o);
-      sz[q] += __shfl_xor_sync(0xffffffffu, sz[q], o);
+      sx += __shfl_xor_sync(0xffffffffu, sx, o);
+      sy += __shfl_xor_sync(0xffffffffu, sy, o);
+      sz += __shfl_xor_sync(0xffffffffu, sz, o);
     }
-    int64_t pi;
-    if (lane == 0 && tile_point(q * POINTS_PER_PASS + slot, tz, ty, tx, sh, pi)) {
-      float* gg = ggrid + (b * P + pi) * 3;
-      gg[0] = sx[q] * (float)sh.W * 0.5f;
-      gg[1] = sy[q] * (float)sh.H * 0.5f;
-      gg[2] = sz[q] * (float)sh.D * 0.5f;
+    if (mine && lane == 0) {
+      float* gg = ggrid + (b * P + p) * 3;
+      gg[0] = sx * (float)sh.W * 0.5f;
+      gg[1] = sy * (float)sh.H * 0.5f;
+      gg[2] = sz * (float)sh.D * 0.5f;
     }
   }
 }
@@ -539,8 +389,8 @@ extern "C" const char* warp3d_error_string(int err) {
 // tiles by path.  Three kernels, chained: prep, the tiles, finish.  Returns
 // the cudaError_t of the launches (0 on success).
 extern "C" int warp3d_backward(const void* vol, const void* grid, const void* grad_out,
-                               void* grad_vol, void* grad_grid, void* scratch, void* tile_paths,
-                               int B, int C, int Cp, int D, int H, int W, int Do, int Ho, int Wo,
+                               void* grad_vol, void* grad_grid, void* scratch, int B, int C,
+                               int Cp, int D, int H, int W, int Do, int Ho, int Wo,
                                void* stream) {
   const int64_t S = (int64_t)D * H * W;
   if ((int64_t)B * C * Do * Ho * Wo == 0 || S == 0) return 0;
@@ -556,20 +406,13 @@ extern "C" int warp3d_backward(const void* vol, const void* grid, const void* gr
   const BwdShape sh{C,  Cp, D,  H,  W, Do, Ho, Wo, (Do + TILE_Z - 1) / TILE_Z,
                     (Ho + TILE_Y - 1) / TILE_Y, (Wo + TILE_X - 1) / TILE_X};
   const int64_t tiles = (int64_t)B * sh.tiles_z * sh.tiles_y * sh.tiles_x;
-  err = launch_after_prior(warp3d_backward_kernel, dim3((unsigned)tiles), dim3(BWD_THREADS),
-                           0, s, static_cast<const float*>(vol_cl),
-                           static_cast<const float*>(grid),
-                           static_cast<const float*>(grad_out), acc,
-                           static_cast<float*>(grad_grid), static_cast<int*>(tile_paths), sh);
+  err = launch_after_prior(warp3d_backward_kernel, dim3((unsigned)tiles), dim3(BWD_THREADS), 0, s,
+                           WARP_BWD_VOL_CL ? static_cast<const float*>(vol_cl)
+                                           : static_cast<const float*>(vol),
+                           static_cast<const float*>(grid), static_cast<const float*>(grad_out),
+                           acc, static_cast<float*>(grad_grid), sh);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_after_prior(bwd_finish_kernel, tgrid, dim3(TT, 8), 0, s,
                                  static_cast<const float*>(acc), static_cast<float*>(grad_vol),
                                  C, Cp, S);
-}
-
-// The backward's compile-time constants, for callers that build fields
-// around its tiles: {TILE_Z, TILE_Y, TILE_X, BWD_THREADS, BOX_VOXELS, CHUNK}.
-extern "C" void warp3d_backward_constants(int* out) {
-  const int v[6] = {TILE_Z, TILE_Y, TILE_X, BWD_THREADS, BOX_VOXELS, CHUNK};
-  for (int i = 0; i < 6; ++i) out[i] = v[i];
 }

@@ -38,7 +38,7 @@ WARP3D = CudaKernel(
 
 WARP3D_BWD = CudaKernel(
     "warp3d.cu", "warp3d_backward",
-    [_c_ptr] * 7 + [_c_int] * 9 + [_c_ptr],
+    [_c_ptr] * 6 + [_c_int] * 9 + [_c_ptr],
 )
 
 WARP3D_Q = CudaKernel(
@@ -106,18 +106,14 @@ def backward_scratch(vol: torch.Tensor) -> tuple[int, torch.Tensor]:
 
 def _launch_backward(vol: torch.Tensor, grid: torch.Tensor,
                      grad_out: torch.Tensor, grad_vol: torch.Tensor,
-                     grad_grid: torch.Tensor,
-                     tile_paths: torch.Tensor | None = None) -> None:
-    """Launch the backward on all-written outputs.  ``tile_paths``: None,
-    or 3 zeroed int32 that count the kernel's tiles by path (shared box,
-    global REDs, no tap inside the volume)."""
+                     grad_grid: torch.Tensor) -> None:
+    """Launch the backward; it writes grad_vol and grad_grid whole."""
     b, c, d, h, w = vol.shape
     cp, scratch = backward_scratch(vol)
     WARP3D_BWD.launch_on(
         vol.device, vol.data_ptr(), grid.data_ptr(), grad_out.data_ptr(),
-        grad_vol.data_ptr(), grad_grid.data_ptr(), scratch.data_ptr(),
-        0 if tile_paths is None else tile_paths.data_ptr(), b, c, cp, d, h,
-        w, *grid.shape[1:4])
+        grad_vol.data_ptr(), grad_grid.data_ptr(), scratch.data_ptr(), b, c,
+        cp, d, h, w, *grid.shape[1:4])
 
 
 def _forward(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:

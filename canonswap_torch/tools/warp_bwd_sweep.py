@@ -4,18 +4,20 @@
     python -m canonswap_torch.tools.warp_bwd_sweep
 
 Builds the source once per variant (``-D`` of WARP_BWD_TILE_Z / _Y / _X,
-WARP_BWD_THREADS, WARP_BWD_BOX_VOXELS, WARP_BWD_MIN_BLOCKS; one nvcc each, all started together),
+WARP_BWD_THREADS, WARP_BWD_MIN_BLOCKS and WARP_BWD_VOL_CL; one nvcc each,
+all started together),
 then at CANONICAL B=8 f32 ((8, 32, 16, 64, 64) volume and grad_out) on three
 fields: ``smooth`` (cell centres plus a displacement uniform in +-0.05),
 ``mixed`` (the smooth field with 10 % of its points redrawn uniform in
 [-1, 1]) and ``random`` (every point uniform in [-1, 1]).  For each variant
-and field it prints one JSON line: the tiles by path (shared box, global
-REDs, empty), the three kernels' device times from one ``torch.profiler``
+and field it prints one JSON line: the three kernels' device times from one ``torch.profiler``
 pass (prep, tiles, finish), the whole call's time with CUDA events (median
 of 5 rounds of 20 calls), and grad_vol's and grad_grid's max abs error over
 max |ref| against the plain gradient (``F.grid_sample``'s autograd).  Then
-one line with ``aten::grid_sampler_3d_backward``'s time on each field, and
-the card's name and power limit.  Every profiler pass runs before the first
+one line with ``aten::grid_sampler_3d_backward``'s time on each field,
+PyTorch's own copy of a channels-last (B, D, H, W, C) f32 tensor to NCDHW
+(what a caller given a channels-last grad_vol would pay in place of the
+finish kernel), and the card's name and power limit.  Every profiler pass runs before the first
 autograd call (after one, a profiler pass on the card saw no device event).
 It writes no file.  The variant marked ``"default": true`` is the source's
 own constants.
@@ -32,19 +34,19 @@ import torch
 from canonswap_torch.ops.cuda import warp as W
 from canonswap_torch.ops.cuda.build import CudaKernel, build_all
 
-# (tile z, y, x, threads, box voxels, min blocks per SM); the first is the
-# source's default; box voxels 0 sends every tile to the global path
+# (tile z, y, x, threads, min blocks per SM, gather from the channels-last
+# copy (1) or from the NCDHW volume (0)); the first is the source's default
 VARIANTS = (
-    (1, 4, 32, 256, 2048, 2),
-    (2, 8, 8, 256, 2048, 2),
-    (1, 8, 16, 256, 2048, 2),
-    (1, 4, 32, 256, 1024, 2),
-    (1, 4, 32, 256, 2048, 3),
-    (1, 4, 32, 128, 2048, 4),
-    (1, 2, 32, 256, 1024, 2),
-    (1, 4, 32, 256, 0, 2),
-    (2, 8, 8, 256, 0, 2),
-    (1, 4, 32, 256, 0, 3),
+    (1, 4, 32, 256, 3, 1),
+    (1, 4, 32, 256, 2, 1),
+    (1, 4, 32, 256, 4, 1),
+    (1, 4, 32, 256, 5, 1),
+    (1, 1, 32, 256, 4, 1),
+    (1, 2, 64, 256, 4, 1),
+    (2, 8, 8, 256, 4, 1),
+    (1, 4, 32, 512, 2, 1),
+    (1, 4, 32, 256, 4, 0),
+    (1, 1, 32, 256, 4, 0),
 )
 SHAPE = (8, 32, 16, 64, 64)
 PARTS = (("prep", "bwd_prep_kernel"), ("tiles", "warp3d_backward_kernel"),
@@ -52,8 +54,8 @@ PARTS = (("prep", "bwd_prep_kernel"), ("tiles", "warp3d_backward_kernel"),
 
 
 def variant_kernel(v) -> CudaKernel:
-    names = ("TILE_Z", "TILE_Y", "TILE_X", "THREADS", "BOX_VOXELS",
-             "MIN_BLOCKS")
+    names = ("TILE_Z", "TILE_Y", "TILE_X", "THREADS", "MIN_BLOCKS",
+             "VOL_CL")
     return CudaKernel("warp3d.cu", "warp3d_backward", W.WARP3D_BWD.argtypes,
                       defines=tuple(f"WARP_BWD_{n}={x}"
                                     for n, x in zip(names, v)))
@@ -75,14 +77,14 @@ def fields(gen: torch.Generator, dev) -> dict:
             (("smooth", smooth), ("mixed", mixed), ("random", rand))}
 
 
-def run(kernel: CudaKernel, vol, grid, gout, tile_paths=None):
+def run(kernel: CudaKernel, vol, grid, gout):
     """One backward through ``kernel`` (the wrapper's launch with
     WARP3D_BWD swapped for it)."""
     real = W.WARP3D_BWD
     W.WARP3D_BWD = kernel
     try:
         gv, gg = torch.empty_like(vol), torch.empty_like(grid)
-        W._launch_backward(vol, grid, gout, gv, gg, tile_paths)
+        W._launch_backward(vol, grid, gout, gv, gg)
         return gv, gg
     finally:
         W.WARP3D_BWD = real
@@ -154,11 +156,9 @@ def main() -> int:
     rows = {}
     for v, k in zip(VARIANTS, kernels):
         for name, grid in grids.items():
-            paths = torch.zeros(3, dtype=torch.int32, device=dev)
-            run(k, vol, grid, gout, paths)
             rows[v, name] = {
                 "variant": list(v), "default": v == VARIANTS[0],
-                "field": name, "tile_paths": paths.tolist(),
+                "field": name,
                 "parts_ms": parts_ms(lambda: run(k, vol, grid, gout))}
     for v, k in zip(VARIANTS, kernels):
         for name, grid in grids.items():
@@ -166,6 +166,9 @@ def main() -> int:
     library = {name: time_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
         gout, vol, grid, 0, 0, False, [True, True]))
         for name, grid in grids.items()}
+    cl = vol.permute(0, 2, 3, 4, 1).contiguous()
+    copy_ms = time_ms(lambda: cl.permute(0, 4, 1, 2, 3).contiguous())
+    del cl
     for name, grid in grids.items():
         pv, pg = W.warp3d_backward_plain(vol, grid, gout)
         for v, k in zip(VARIANTS, kernels):
@@ -178,7 +181,8 @@ def main() -> int:
                           "ptxas": ptxas_lines(k.build_log)}), flush=True)
     for row in rows.values():
         print(json.dumps(row), flush=True)
-    print(json.dumps({"library_ms": library, "nvidia_smi": smi,
+    print(json.dumps({"library_ms": library, "contiguous_copy_ms": copy_ms,
+                      "nvidia_smi": smi,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
