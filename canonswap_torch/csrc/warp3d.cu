@@ -161,7 +161,66 @@ cudaError_t launch(const void* vol, const void* grid, void* out, int B, int C, i
 // zero.  At an integer coordinate this takes the cell above it, as
 // F.grid_sample's backward does.
 //
-// DESIGN-HEADER
+// Design, for the H100: three kernels on the stream, chained with
+// programmatic dependent launch (chain.cuh), each started while the one
+// before it drains.
+//
+//   prep    vol (B, C, D, H, W) -> vol_cl (B, D, H, W, Cp), channels
+//           contiguous and zero-padded to Cp = C rounded up to 4, and the
+//           accumulator acc (B, D, H, W, Cp) zeroed; 32 x 32 tiles through
+//           shared memory, read and written along their contiguous axes.
+//   tiles   one block per tile of TILE_Z x TILE_Y x TILE_X output points
+//           of one sample, 8 lanes per point, lane j holding channels
+//           4j .. 4j + 3 of each chunk of 32 (the tail of C masked).  A lane
+//           computes its point's taps with axis_taps, as the forward does;
+//           per corner inside the volume it loads its 4 channels of vol_cl
+//           with one 16-byte load, adds its share of grad_grid, and adds
+//           w_k * grad_out into acc with one vector RED (atomicAdd on a
+//           float4: red.global.add.v4.f32, sm_90).  A corner's 32 channels
+//           are one 128-byte line of vol_cl and of acc, where NCDHW spread
+//           them over 32 planes: at C = 32 a point issues 64 vector REDs and
+//           64 16-byte loads, where the first backward kernel issued 256
+//           scalar REDs and 256 scalar gathers.  grad_grid is summed over
+//           the 8 lanes with shuffles and written once per point.
+//   finish  acc -> grad_vol (B, C, D, H, W), tiled as prep.
+//
+// The kernels write grad_vol and grad_grid whole, so the wrapper allocates
+// them empty; vol_cl and acc are its scratch.  Offsets are 64-bit.
+//
+// What bounds it.  The function's own bytes (vol, grid and grad_out read
+// once, grad_vol and grad_grid written once) are 214 MB at CANONICAL B=8,
+// C=32: 0.064 ms at 3.35 TB/s (chip_smoke.py's warp_bwd_bound; the first
+// kernel's header said 0.10 ms, counting also the 67 MB memset of grad_vol
+// and the 67 MB its REDs read back).  This design moves about 616 MB: prep
+// 201, tiles 281 or more (vol_cl, grad_out, the grid and grad_grid, and
+// acc read and written under the REDs: 67 MB does not stay in the 50 MB
+// L2), finish 134; 0.18 ms at the memory rate.  The tiles kernel takes
+// about two thirds of the call: each lane runs a chain of dependent memory
+// operations (grid, grad_out, then per corner a load and a RED), so the
+// warps resident per SM set its time, not the bytes or the REDs' count.
+//
+// Measured on an H100 80GB HBM3 at 700 W (tools/warp_bwd_sweep.py, PERF.md
+// section 6 row 9), whole call at CANONICAL B=8 f32: 0.355 ms on the
+// smooth field, 0.371 on the random one, against 1.245 and 1.973 for
+// aten::grid_sampler_3d_backward.  Tried there and dropped:
+//   - a per-tile box of grad_vol in shared memory, flushed with one RED per
+//     box voxel and 4 channels, in two forms (f32 shared atomics; the
+//     tile's (point, corner) pairs sorted by voxel): 1.3 to 1.9x slower on
+//     the smooth field, where every tile's box fitted, since the REDs do
+//     not bound the tiles kernel and the box costs barriers and occupancy;
+//   - gathering the corners from the NCDHW volume and skipping vol_cl:
+//     1.35x slower on the smooth field, 3.2x on the random one;
+//   - returning acc as a channels_last_3d grad_vol, without finish: the
+//     consumer's copy to NCDHW (PyTorch's) takes 0.144 ms, finish 0.059.
+//
+// Constants, chosen there: tiles of 1 x 4 x 32 points (rows of 32 along x:
+// neighbouring lanes read and RED neighbouring lines), blocks of 256
+// threads (4 passes of 32 points), at most 80 registers so 3 blocks fit an
+// SM with no spills.  2 blocks per SM (84 registers) were 7 % slower, 4
+// (64, spilling) level, 5 (48) 11 to 19 % slower; tiles of 2 x 8 x 8 or
+// 1 x 1 x 32, and blocks of 512, within 2 %.  The WARP_BWD_* macros exist
+// for tools/warp_bwd_sweep.py, which builds variants with -D; the port
+// builds the defaults.
 
 #ifndef WARP_BWD_TILE_Z
 #define WARP_BWD_TILE_Z 1
@@ -177,9 +236,6 @@ cudaError_t launch(const void* vol, const void* grid, void* out, int B, int C, i
 #endif
 #ifndef WARP_BWD_MIN_BLOCKS
 #define WARP_BWD_MIN_BLOCKS 3
-#endif
-#ifndef WARP_BWD_VOL_CL
-#define WARP_BWD_VOL_CL 1
 #endif
 
 constexpr int TILE_Z = WARP_BWD_TILE_Z, TILE_Y = WARP_BWD_TILE_Y, TILE_X = WARP_BWD_TILE_X;
@@ -221,7 +277,7 @@ __global__ void __launch_bounds__(TT * 8) bwd_prep_kernel(const float* __restric
     const int c = c0 + tx;
     if (s < S && c < Cp) {
       const int64_t o = (b * S + s) * Cp + c;
-      if (WARP_BWD_VOL_CL) vol_cl[o] = t[tx][r];
+      vol_cl[o] = t[tx][r];
       acc[o] = 0.0f;
     }
   }
@@ -266,24 +322,11 @@ __device__ __forceinline__ void red_add4(float* p, float a, float b, float c, fl
   atomicAdd(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
 }
 
-// channels c .. c + 3 of voxel vox (those below C; the rest 0)
-__device__ __forceinline__ float4 corner4(const float* __restrict__ vsrc, int64_t vox, int c,
-                                          const BwdShape& sh, int64_t S) {
-#if WARP_BWD_VOL_CL
-  return __ldg(reinterpret_cast<const float4*>(vsrc + vox * sh.Cp + c));
-#else
-  float e[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) e[i] = c + i < sh.C ? __ldg(vsrc + (int64_t)(c + i) * S + vox) : 0.0f;
-  return make_float4(e[0], e[1], e[2], e[3]);
-#endif
-}
-
 // One block per tile of TILE_Z x TILE_Y x TILE_X output points of one
 // sample; 8 lanes per point, lane j holding channels c0 + 4j .. + 3 of each
 // chunk of 32.
 __global__ void __launch_bounds__(BWD_THREADS, WARP_BWD_MIN_BLOCKS) warp3d_backward_kernel(
-    const float* __restrict__ vsrc, const float* __restrict__ grid,
+    const float* __restrict__ vol_cl, const float* __restrict__ grid,
     const float* __restrict__ gout, float* __restrict__ acc, float* __restrict__ ggrid,
     BwdShape sh) {
   int t = blockIdx.x;
@@ -296,15 +339,11 @@ __global__ void __launch_bounds__(BWD_THREADS, WARP_BWD_MIN_BLOCKS) warp3d_backw
   const int64_t P = (int64_t)sh.Do * sh.Ho * sh.Wo;
   const int64_t S = (int64_t)sh.D * sh.H * sh.W;
   const int lane = threadIdx.x % LANES, slot = threadIdx.x / LANES;
-#if WARP_BWD_VOL_CL
-  const float* vb = vsrc + b * S * sh.Cp;
-#else
-  const float* vb = vsrc + b * sh.C * S;
-#endif
+  const float* vb = vol_cl + b * S * sh.Cp;
   float* ab = acc + b * S * sh.Cp;
   const float* gob = gout + b * sh.C * P;
 
-  wait_for_prior_grid();  // acc zeroed (and vol_cl written)
+  wait_for_prior_grid();  // vol_cl written, acc zeroed
   allow_next_grid();
 
 #pragma unroll 1
@@ -330,7 +369,7 @@ __global__ void __launch_bounds__(BWD_THREADS, WARP_BWD_MIN_BLOCKS) warp3d_backw
           const float wy = dy ? ay.w1 : ay.w0;
           const float wx = dx ? ax.w1 : ax.w0;
           const int64_t vox = ((int64_t)(az.i0 + dz) * sh.H + (ay.i0 + dy)) * sh.W + (ax.i0 + dx);
-          const float4 v = corner4(vb, vox, c, sh, S);
+          const float4 v = __ldg(reinterpret_cast<const float4*>(vb + vox * sh.Cp + c));
           const float s = go[0] * v.x + go[1] * v.y + go[2] * v.z + go[3] * v.w;
           sx += (dx ? 1.0f : -1.0f) * wy * wz * s;
           sy += (dy ? 1.0f : -1.0f) * wx * wz * s;
@@ -385,8 +424,7 @@ extern "C" const char* warp3d_error_string(int err) {
 // grad_out (B, C, Do, Ho, Wo); writes grad_vol (B, C, D, H, W) and
 // grad_grid (B, Do, Ho, Wo, 3) whole.  scratch holds 2 * B * D * H * W * Cp
 // floats (the channels-last volume, then the accumulator), Cp = C rounded up
-// to a multiple of 4.  tile_paths: null, or 3 zeroed ints that count the
-// tiles by path.  Three kernels, chained: prep, the tiles, finish.  Returns
+// to a multiple of 4.  Three kernels, chained: prep, tiles, finish.  Returns
 // the cudaError_t of the launches (0 on success).
 extern "C" int warp3d_backward(const void* vol, const void* grid, const void* grad_out,
                                void* grad_vol, void* grad_grid, void* scratch, int B, int C,
@@ -407,9 +445,8 @@ extern "C" int warp3d_backward(const void* vol, const void* grid, const void* gr
                     (Ho + TILE_Y - 1) / TILE_Y, (Wo + TILE_X - 1) / TILE_X};
   const int64_t tiles = (int64_t)B * sh.tiles_z * sh.tiles_y * sh.tiles_x;
   err = launch_after_prior(warp3d_backward_kernel, dim3((unsigned)tiles), dim3(BWD_THREADS), 0, s,
-                           WARP_BWD_VOL_CL ? static_cast<const float*>(vol_cl)
-                                           : static_cast<const float*>(vol),
-                           static_cast<const float*>(grid), static_cast<const float*>(grad_out),
+                           static_cast<const float*>(vol_cl), static_cast<const float*>(grid),
+                           static_cast<const float*>(grad_out),
                            acc, static_cast<float*>(grad_grid), sh);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_after_prior(bwd_finish_kernel, tgrid, dim3(TT, 8), 0, s,

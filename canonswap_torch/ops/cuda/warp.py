@@ -13,8 +13,10 @@ launches the kernel or raises.  Nothing falls back.
 
 Gradients: the exact warp on the card is an autograd function whose backward
 is the kernel ``warp3d_backward`` (same source, f32 only; the JAX trainer
-runs in f32).  The W8A8 warp has no backward and raises under grad, as the
-other int8 kernels do: the JAX package never differentiates them.
+runs in f32): a copy of the volume laid out channels last, vector REDs into
+a channels-last accumulator, and a transpose back, in one chained launch.
+The W8A8 warp has no backward and raises under grad, as the other int8
+kernels do: the JAX package never differentiates them.
 """
 
 from __future__ import annotations

@@ -81,14 +81,19 @@ Phases, one JSON line each:
      the cached run's frames equal the first's, and differ from the
      unflagged run's inside the warped mask;
  20. warp bwd kernel: the exact warp's backward kernel against its plain
-     gradient (F.grid_sample's autograd backward) at a ragged shape with
-     points outside the volume and at CANONICAL B=8 f32 on the smooth and a
-     random field, timed there beside the plain version, the library
-     backward and its bound;
+     gradient (F.grid_sample's autograd backward) at CANONICAL B=8 f32 on
+     the smooth, a random and a mixed field, timed there beside the plain
+     version, the library backward and its bound, with each of its three
+     kernels' device time (parts_ms); and on a violent deformation, integer
+     coordinates, a field wholly outside the volume, C = 5, C = 40 on
+     ragged tiles and a small ragged shape with points outside;
  21. train step: runtime/train.py at CANONICAL f32, B=8, five steps (the
      motion heads held in range by stated constants), launches per step;
      first its gradients through the kernel backward against those through
-     the plain backward on the same tensors;
+     the plain backward on the same tensors, and the backward kernel on
+     the step's own two warps (their volumes, grids and incoming
+     gradients), held to the plain gradient and timed beside the library
+     backward;
  22. train card vs CPU: one step at TINY f32, the loss and gradients on
      the card against the CPU;
  23. train CLI: python -m canonswap_torch.cli.train --steps 3 --batch 2 as
@@ -2444,62 +2449,183 @@ def warp_bwd_bound(vol, grid, gout):
                     64.0 * gout.numel(), F32_PEAK_TFLOPS)
 
 
-def phase_warp_bwd_kernel() -> dict:
-    """``warp3d_backward`` against the plain gradient (``F.grid_sample``'s
-    autograd backward in f32): grad_vol and grad_grid, max abs over max
-    |ref| <= 1e-5, at a small ragged shape with points outside the volume
-    and at CANONICAL B=8 f32 (the training path's shape) on the smooth
-    in-range field and a random one; timed there beside the plain version
-    (its forward and backward), the library backward
-    (``aten::grid_sampler_3d_backward``) and the bound."""
+# the backward's three kernels, in launch order, by a substring of their
+# CUDA kernel names
+WARP_BWD_PARTS = (("prep", "bwd_prep_kernel"),
+                  ("tiles", "warp3d_backward_kernel"),
+                  ("finish", "bwd_finish_kernel"))
+
+
+def warp_bwd_parts_ms(fn, calls: int = 5) -> dict:
+    """Device ms of each of the backward's kernels: the median over
+    ``calls`` calls of ``fn`` in one torch.profiler pass, after a pass of
+    one call that is thrown away (a first pass in the process recorded one
+    kernel of three, or none), with how many of each the pass recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for n in (1, calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+    events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    seen = {part: [ms for name, ms in events if sub in name]
+            for part, sub in WARP_BWD_PARTS}
+    if not all(seen.values()):
+        raise AssertionError(f"warp_bwd parts: a kernel missing in {events}")
+    return {**{part: float(np.median(v)) for part, v in seen.items()},
+            "recorded": {part: len(v) for part, v in seen.items()}}
+
+
+def mixed_grid(b, d, h, w, gen, device):
+    """The smooth field (displacement +-0.05) with 10 % of its points
+    redrawn uniform in [-1, 1]."""
+    grid = smooth_grid(b, d, h, w, 0.05, gen, "cpu", torch.float32)
+    rand = torch.rand(grid.shape, generator=gen) * 2 - 1
+    pick = torch.rand((*grid.shape[:-1], 1), generator=gen) < 0.1
+    return torch.where(pick, rand, grid).to(device).contiguous()
+
+
+def time_warp_bwd(vol, grid, gout, plain: bool = True) -> dict:
+    """The backward kernel timed beside the plain version (its forward and
+    backward; in turns: plain, kernel, kernel, plain), the library backward
+    (aten::grid_sampler_3d_backward) and the bound, with the share of
+    points inside the volume."""
     from canonswap_torch.ops.cuda.warp import (warp3d_backward_cuda,
                                                warp3d_backward_plain)
 
+    out = {}
+    if plain:
+        out["plain_ms"] = [time_ms(lambda: warp3d_backward_plain(
+            vol, grid, gout), iters=5)]
+    out["kernel_ms"] = [time_ms(lambda: warp3d_backward_cuda(vol, grid, gout))
+                        for _ in range(2)]
+    if plain:
+        out["plain_ms"].append(time_ms(lambda: warp3d_backward_plain(
+            vol, grid, gout), iters=5))
+    out["library_ms"] = time_ms(
+        lambda: torch.ops.aten.grid_sampler_3d_backward(
+            gout, vol, grid, 0, 0, False, [True, True]))
+    out["bound_ms"], out["bound_by"] = warp_bwd_bound(vol, grid, gout)
+    out["inside_share"] = float((grid.abs() <= 1).all(-1).float().mean())
+    return out
+
+
+def check_warp_bwd(label, vol, grid, gout, cases: list,
+                   zeros: bool = False) -> float:
+    """The kernel's grad_vol and grad_grid against the plain gradient, max
+    abs over max |ref| <= F32_TOL each, and with ``zeros`` (a field wholly
+    outside the volume) both exactly 0; appends the case, returns the max
+    abs error."""
+    from canonswap_torch.ops.cuda.warp import (warp3d_backward_cuda,
+                                               warp3d_backward_plain)
+
+    gv, gg = warp3d_backward_cuda(vol, grid, gout)
+    pv, pg = warp3d_backward_plain(vol, grid, gout)
+    torch.cuda.synchronize()
+    (rv, av), (rg, ag) = max_rel_err(gv, pv), max_rel_err(gg, pg)
+    cases.append({"case": label, "shape": list(vol.shape),
+                  "grid": list(grid.shape), "grad_vol_rel": rv,
+                  "grad_grid_rel": rg, "tol": F32_TOL})
+    if not (rv <= F32_TOL and rg <= F32_TOL) or (
+            zeros and (bool(gv.any()) or bool(gg.any()))):
+        emit("warp_bwd_kernel", cases=cases, ok=False)
+        raise AssertionError(f"warp3d_backward vs plain {label}: "
+                             f"grad_vol {rv}, grad_grid {rg} > {F32_TOL}")
+    return max(av, ag)
+
+
+def phase_warp_bwd_kernel() -> dict:
+    """``warp3d_backward`` (prep, tiles and finish kernels, one launch)
+    against the plain gradient (``F.grid_sample``'s autograd backward in
+    f32): grad_vol and grad_grid, max abs over max |ref| <= F32_TOL, at
+    CANONICAL B=8 f32 (the training path's shape) on the smooth in-range
+    field, a random one and a mixed one (the smooth field with 10 % of its
+    points random), and at B=1 on a violent deformation (displacement
+    +-0.5), the cell centres exactly (integer coordinates), a field wholly
+    outside the volume (both gradients exactly 0), C = 5 at the training
+    spatial size, C = 40 (two channel chunks with a tail) on an output
+    grid whose tiles overhang it, and a small ragged shape with points
+    outside.  The three B=8 fields are timed beside the plain version, the
+    library backward and the bound, with each kernel's device time from one
+    torch.profiler pass (parts_ms), taken before the first autograd call:
+    once the autograd engine had run on the card, a later profiler pass
+    saw no device event.  The training step's own fields are checked and
+    timed in phase_train_step."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(30)
     cases, timings = [], {}
-
-    def check(label, vol, grid, gout):
-        gv, gg = warp3d_backward_cuda(vol, grid, gout)
-        pv, pg = warp3d_backward_plain(vol, grid, gout)
-        torch.cuda.synchronize()
-        (rv, av), (rg, ag) = max_rel_err(gv, pv), max_rel_err(gg, pg)
-        cases.append({"case": label, "grad_vol_rel": rv, "grad_grid_rel": rg,
-                      "tol": F32_TOL})
-        if not (rv <= F32_TOL and rg <= F32_TOL):
-            emit("warp_bwd_kernel", cases=cases, ok=False)
-            raise AssertionError(f"warp3d_backward vs plain {label}: "
-                                 f"grad_vol {rv}, grad_grid {rg} > {F32_TOL}")
-        return max(av, ag)
-
-    vol = torch.randn((2, 5, 3, 7, 9), generator=gen).to(dev)
-    grid = ((torch.rand((2, 4, 6, 5, 3), generator=gen) * 2 - 1) * 1.6).to(dev)
-    check("ragged_outside", vol, grid, torch.randn(
-        (2, 5, 4, 6, 5), generator=gen).to(dev))
     b = TRAIN_BATCH
     vol = torch.randn((b, 32, 16, 64, 64), generator=gen).to(dev)
     gout = torch.randn((b, 32, 16, 64, 64), generator=gen).to(dev)
+    fields = {
+        "smooth": smooth_grid(b, 16, 64, 64, 0.05, gen, dev, torch.float32),
+        "random": (torch.rand((b, 16, 64, 64, 3), generator=gen) * 2
+                   - 1).to(dev),
+        "mixed": mixed_grid(b, 16, 64, 64, gen, dev),
+    }
+    from canonswap_torch.ops.cuda.warp import warp3d_backward_cuda
+
+    parts = {field: warp_bwd_parts_ms(
+        lambda: warp3d_backward_cuda(vol, grid, gout))
+        for field, grid in fields.items()}
     worst = 0.0
-    for field, grid in (
-        ("smooth", smooth_grid(b, 16, 64, 64, 0.05, gen, dev, torch.float32)),
-        ("random", (torch.rand((b, 16, 64, 64, 3), generator=gen) * 2
-                    - 1).to(dev)),
-    ):
-        worst = max(worst, check(f"canonical_{field}", vol, grid, gout))
-        p1 = time_ms(lambda: warp3d_backward_plain(vol, grid, gout), iters=5)
-        k1 = time_ms(lambda: warp3d_backward_cuda(vol, grid, gout))
-        k2 = time_ms(lambda: warp3d_backward_cuda(vol, grid, gout))
-        p2 = time_ms(lambda: warp3d_backward_plain(vol, grid, gout), iters=5)
-        lib = time_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
-            gout, vol, grid, 0, 0, False, [True, True]))
-        bound, bound_by = warp_bwd_bound(vol, grid, gout)
-        timings[field] = {
-            "kernel_ms": [k1, k2], "plain_ms": [p1, p2], "library_ms": lib,
-            "bound_ms": bound, "bound_by": bound_by,
-            "inside_share": float((grid.abs() <= 1).all(-1).float().mean())}
+    for field, grid in fields.items():
+        worst = max(worst, check_warp_bwd(f"canonical_{field}", vol, grid,
+                                          gout, cases))
+        timings[field] = {**time_warp_bwd(vol, grid, gout),
+                          "parts_ms": parts[field]}
+    del vol, gout, fields
+
+    def small(label, shape, grid_shape, grid, zeros=False):
+        v = torch.randn(shape, generator=gen).to(dev)
+        g = torch.randn((*shape[:2], *grid_shape), generator=gen).to(dev)
+        return check_warp_bwd(label, v, grid.to(dev).contiguous(), g, cases,
+                              zeros)
+
+    s = (1, 32, 16, 64, 64)
+    worst = max(worst, small("overflow", s, (16, 64, 64), smooth_grid(
+        1, 16, 64, 64, 0.5, gen, "cpu", torch.float32)))
+    worst = max(worst, small("integer_coordinates", s, (16, 64, 64),
+                             smooth_grid(1, 16, 64, 64, 0.0, gen, "cpu",
+                                         torch.float32)))
+    out = torch.rand((2, 4, 8, 8, 3), generator=gen) * 2 - 1
+    worst = max(worst, small("all_outside", (2, 8, 4, 8, 8), (4, 8, 8),
+                             out.sign() * 1.4 + out * 0.1, zeros=True))
+    worst = max(worst, small("ragged_c5", (1, 5, 16, 64, 64), (16, 64, 64),
+                             smooth_grid(1, 16, 64, 64, 0.05, gen, "cpu",
+                                         torch.float32)))
+    worst = max(worst, small("tile_edges_c40", (1, 40, 5, 9, 37), (3, 7, 45),
+                             (torch.rand((1, 3, 7, 45, 3), generator=gen)
+                              * 2 - 1) * 1.1))
+    worst = max(worst, small("ragged_outside", (2, 5, 3, 7, 9), (4, 6, 5),
+                             (torch.rand((2, 4, 6, 5, 3), generator=gen)
+                              * 2 - 1) * 1.6))
     emit("warp_bwd_kernel", cases=cases, timings_b8=timings,
          max_abs_err=worst, ok=True)
     return {"timings": timings, "max_abs_err": worst}
+
+
+def capture_warp_bwd(core, store: dict) -> None:
+    """Wraps the core's warp so that, while ``store["on"]``, each call's
+    volume and grid and the gradient that reaches its output are kept in
+    ``store["warps"]`` (the training step's own backward inputs)."""
+    sample = core.warping_module.sample
+
+    def captured(vol, grid):
+        out = sample(vol, grid)
+        if store["on"] and out.requires_grad:
+            rec = {"vol": vol.detach(), "grid": grid.detach()}
+            store["warps"].append(rec)
+            out.register_hook(lambda g: rec.update(gout=g.detach()
+                                                   .contiguous()))
+        return out
+
+    core.warping_module.sample = captured
 
 
 def hold_keypoints(core, gen) -> None:
@@ -2567,6 +2693,8 @@ def phase_train_step() -> dict:
     sid = torch.randn((b, CANONICAL.swap.latent_dim), generator=gen).to(dev)
     shares: list = []
     record_inside_share(core, shares)
+    warps = {"on": True, "warps": []}
+    capture_warp_bwd(core, warps)
 
     def gradients():
         opt.zero_grad(set_to_none=True)
@@ -2577,14 +2705,16 @@ def phase_train_step() -> dict:
 
     def plain_launch(vol, grid, gout, gvol, ggrid):
         pv, pg = W.warp3d_backward_plain(vol, grid, gout)
-        gvol.add_(pv)
+        gvol.copy_(pv)
         ggrid.copy_(pg)
 
     torch.backends.cudnn.deterministic = True
     real_launch = W._launch_backward
     try:
         reset_launch_counts()
-        g_kernel = [gradients() for _ in range(TRAIN_GRAD_RUNS)]
+        g_kernel = [gradients()]
+        warps["on"] = False
+        g_kernel += [gradients() for _ in range(TRAIN_GRAD_RUNS - 1)]
         grad_launches = launch_counts()
         W._launch_backward = plain_launch
         g_plain = [gradients() for _ in range(TRAIN_GRAD_RUNS)]
@@ -2620,6 +2750,15 @@ def phase_train_step() -> dict:
             if not (bool(torch.isfinite(g_kernel[k]).all())
                     and bool((g_kernel[k] != 0).any()))]
     del g_kernel, g_plain
+    # the backward kernel on the step's own two warps: held to the plain
+    # gradient and timed beside the library backward
+    field_cases, fields = [], []
+    for i, rec in enumerate(warps["warps"]):
+        check_warp_bwd(f"train_warp{i}", rec["vol"], rec["grid"], rec["gout"],
+                       field_cases)
+        fields.append(time_warp_bwd(rec["vol"], rec["grid"], rec["gout"],
+                                    plain=False))
+    del warps["warps"][:]
 
     steps = []
     torch.cuda.synchronize()
@@ -2644,7 +2783,8 @@ def phase_train_step() -> dict:
          grad_leaves=len(leaves), zero_grad_leaves=len(zero_leaves),
          leaves_held_by_spread=by_spread,
          grad_launches=list(grad_launches), failing_leaves=bad,
-         upstream_params=len(upstream), upstream_without_gradient=dead)
+         upstream_params=len(upstream), upstream_without_gradient=dead,
+         warp_bwd_cases=field_cases, warp_bwd_fields=fields)
     want = only(warp3d=2, warp3d_backward=2)
     terms = ("loss", "l1", "kp_prior", "range_prior", "grad_norm")
     if bad or dead:
@@ -2661,10 +2801,13 @@ def phase_train_step() -> dict:
         raise AssertionError("train_step: a non-finite loss term")
     if min(st["inside_share"][0] for st in steps) < 0.5:
         raise AssertionError("train_step: the keypoints left the grid")
+    if len(fields) != 2:
+        raise AssertionError(f"train_step: {len(fields)} warps captured")
     del core, leaves, opt
     torch.cuda.empty_cache()
     return {"launches_per_step": steps[-1]["launches"][
-        KERNEL_NAMES.index("warp3d_backward")], "ms_per_step": ms}
+        KERNEL_NAMES.index("warp3d_backward")], "ms_per_step": ms,
+        "warp_bwd_fields": fields}
 
 
 def phase_train_card_vs_cpu() -> None:
@@ -2887,8 +3030,9 @@ def main() -> int:
         phase_cli_swap(d)
         stitch_session = phase_pipeline_stitch(d, pipe)
         del pipe["result"], pipe["mask"]
-        # after every torch.profiler pass: once the autograd engine has run
-        # on the card, a later profiler pass recorded no device event
+        # after every other torch.profiler pass (its own come first): once
+        # the autograd engine has run on the card, a later profiler pass
+        # recorded no device event
         bwd = phase_warp_bwd_kernel()
         train = phase_train_step()
         phase_train_card_vs_cpu()
@@ -2979,6 +3123,14 @@ def main() -> int:
         "random_field_ms": float(np.median(
             bwd["timings"]["random"]["kernel_ms"])),
         "random_field_library_ms": bwd["timings"]["random"]["library_ms"],
+        "mixed_field_ms": float(np.median(
+            bwd["timings"]["mixed"]["kernel_ms"])),
+        "mixed_field_library_ms": bwd["timings"]["mixed"]["library_ms"],
+        "parts_ms": smooth_bwd["parts_ms"],
+        "train_fields_ms": [float(np.median(f["kernel_ms"]))
+                            for f in train["warp_bwd_fields"]],
+        "train_fields_library_ms": [f["library_ms"]
+                                    for f in train["warp_bwd_fields"]],
         "train_ms_per_step": train["ms_per_step"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

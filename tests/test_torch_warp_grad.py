@@ -99,13 +99,13 @@ def test_autograd_function_calls_the_backward_entry(monkeypatch):
                       tuple(out.shape)))
         out.copy_(W.grid_sample_3d_plain(vol, grid))
 
-    def bwd(vol, grid, gout, gvol, ggrid):
+    def bwd(vol, grid, gout, gvol, ggrid):  # writes both outputs whole
         calls.append(("bwd", tuple(vol.shape), tuple(grid.shape),
                       tuple(gout.shape), tuple(gvol.shape),
-                      tuple(ggrid.shape), float(gvol.abs().max()),
-                      gout.is_contiguous()))
+                      tuple(ggrid.shape), gout.is_contiguous(),
+                      gvol.is_contiguous() and ggrid.is_contiguous()))
         v, g = W.warp3d_backward_plain(vol, grid, gout)
-        gvol.add_(v)
+        gvol.copy_(v)
         ggrid.copy_(g)
 
     monkeypatch.setattr(W, "_check_cuda_args", lambda vol, grid: None)
@@ -122,7 +122,7 @@ def test_autograd_function_calls_the_backward_entry(monkeypatch):
     assert calls == [
         ("fwd", (2, 3, 4, 5, 6), (2, 2, 3, 4, 3), (2, 3, 2, 3, 4)),
         ("bwd", (2, 3, 4, 5, 6), (2, 2, 3, 4, 3), (2, 3, 2, 3, 4),
-         (2, 3, 4, 5, 6), (2, 2, 3, 4, 3), 0.0, True)]
+         (2, 3, 4, 5, 6), (2, 2, 3, 4, 3), True, True)]
     gv, gg = W.warp3d_backward_plain(vol, grid, gout)
     assert rel(vol.grad, gv) == 0.0 and rel(grid.grad, gg) == 0.0
 
@@ -132,7 +132,7 @@ def test_autograd_function_returns_only_the_needed_gradients(monkeypatch):
     monkeypatch.setattr(W, "_launch_forward", lambda v, g, o: o.copy_(
         W.grid_sample_3d_plain(v, g)))
     monkeypatch.setattr(W, "_launch_backward", lambda v, g, go, gv, gg: (
-        gv.add_(1.0), gg.fill_(2.0)))
+        gv.fill_(1.0), gg.fill_(2.0)))
     vol, grid = case((1, 2, 3, 3, 3), (1, 2, 2, 2, 3), 1.0)
     W.Warp3d.apply(vol, grid.requires_grad_()).sum().backward()
     assert vol.grad is None and bool((grid.grad == 2.0).all())
@@ -169,6 +169,72 @@ def test_backward_wrapper_refuses_what_the_kernel_does_not_take(
         W.warp3d_backward_cuda(vol, grid, gout[..., :1])
     assert not launched
     W.warp3d_backward_cuda(vol, grid, gout)
+    assert len(launched) == 1
+
+
+@pytest.mark.parametrize("c", [1, 4, 5, 32, 33])
+def test_backward_scratch_layout(c):
+    """Cp is C rounded up to 4; the scratch is the channels-last volume and
+    the accumulator, (2, B, D, H, W, Cp) f32 contiguous on vol's device,
+    the accumulator starting on 16 bytes (its corner rows are float4s)."""
+    vol = torch.zeros((2, c, 3, 5, 7))
+    cp, scratch = W.backward_scratch(vol)
+    assert cp % 4 == 0 and c <= cp < c + 4
+    assert tuple(scratch.shape) == (2, 2, 3, 5, 7, cp)
+    assert scratch.dtype == torch.float32 and scratch.is_contiguous()
+    assert scratch.device == vol.device
+    assert scratch[1].data_ptr() % 16 == 0 and scratch[0].data_ptr() % 16 == 0
+
+
+def test_backward_launch_passes_shapes_and_scratch(monkeypatch):
+    """The C entry gets vol, grid, grad_out, grad_vol, grad_grid and the
+    scratch by address, then B, C, Cp, D, H, W, Do, Ho, Wo: the output grid
+    may differ from the volume in every axis."""
+    seen = []
+    monkeypatch.setattr(W.WARP3D_BWD, "launch_on",
+                        lambda device, *a: seen.append((device, a)))
+    vol = torch.zeros((2, 5, 3, 7, 9))
+    grid = torch.zeros((2, 4, 6, 11, 3))
+    gout = torch.zeros((2, 5, 4, 6, 11))
+    gv, gg = torch.empty_like(vol), torch.empty_like(grid)
+    W._launch_backward(vol, grid, gout, gv, gg)
+    ((device, args),) = seen
+    assert device == vol.device
+    assert args[:5] == tuple(t.data_ptr() for t in (vol, grid, gout, gv, gg))
+    assert args[5] not in args[:5]
+    assert args[6:] == (2, 5, 8, 3, 7, 9, 4, 6, 11)
+
+
+def test_backward_wrapper_leaves_the_outputs_to_the_kernel(monkeypatch):
+    """grad_vol and grad_grid are allocated empty (no zeros_like, no
+    memset: the kernel writes them whole) and returned as the launch left
+    them; with nothing to sample (C = 0 or an empty volume) there is no
+    launch and both are zeros."""
+    def no_zeros(*a, **k):
+        raise AssertionError("zeros_like: the kernel writes grad_vol whole")
+
+    launched = []
+
+    def launch(vol, grid, gout, gv, gg):
+        launched.append((gv.data_ptr(), gg.data_ptr()))
+        gv.fill_(7.0)
+        gg.fill_(-3.0)
+
+    monkeypatch.setattr(W, "_check_cuda_args", lambda vol, grid: None)
+    monkeypatch.setattr(W, "_launch_backward", launch)
+    monkeypatch.setattr(torch, "zeros_like", no_zeros)
+    vol, grid = case((1, 3, 4, 5, 6), (1, 2, 3, 4, 3), 1.0)
+    gv, gg = W.warp3d_backward_cuda(vol, grid, torch.ones((1, 3, 2, 3, 4)))
+    assert launched == [(gv.data_ptr(), gg.data_ptr())]
+    assert bool((gv == 7.0).all()) and bool((gg == -3.0).all())
+    assert gv.shape == vol.shape and gg.shape == grid.shape
+    assert gv.is_contiguous() and gg.is_contiguous()
+    for vshape in ((1, 0, 4, 5, 6), (1, 3, 0, 5, 6)):
+        v = torch.ones(vshape)
+        gout = torch.ones((1, vshape[1], 2, 3, 4))
+        gv, gg = W.warp3d_backward_cuda(v, grid, gout)
+        assert gv.shape == vshape and bool((gg == 0).all())
+        assert bool((gv == 0).all())
     assert len(launched) == 1
 
 
@@ -228,36 +294,68 @@ def cuda():
     return torch.device("cuda")
 
 
-def smooth(b, d, h, w, scale, seed):
-    """Identity (cell centres) plus a small random displacement."""
+def smooth(b, d, h, w, scale, seed, kinks=False):
+    """Identity (cell centres) plus a small random displacement; off the
+    kinks unless ``kinks``."""
     g = torch.Generator().manual_seed(seed)
     axes = [(torch.arange(n, dtype=torch.float64) + 0.5) / n * 2 - 1
             for n in (d, h, w)]
     zz, yy, xx = torch.meshgrid(*axes, indexing="ij")
     ident = torch.stack([xx, yy, zz], -1)[None].float()
     grid = ident + (torch.rand((b, d, h, w, 3), generator=g) * 2 - 1) * scale
-    return avoid_kinks(grid, (w, h, d))
+    return grid if kinks else avoid_kinks(grid, (w, h, d))
 
 
 BWD_CASES = {
+    # (vol shape, field, its range or displacement, output grid (Do, Ho, Wo)
+    # where it differs from the volume's)
     # the training path's shape (CANONICAL, B=1 here), both fields
-    "canonical_smooth": ((1, 32, 16, 64, 64), None, 0.05),
-    "canonical_random": ((1, 32, 16, 64, 64), (1, 16, 64, 64, 3), 1.0),
+    "canonical_smooth": ((1, 32, 16, 64, 64), "smooth", 0.05, None),
+    "canonical_random": ((1, 32, 16, 64, 64), "uniform", 1.0, None),
     # ragged, many points outside the volume
-    "ragged_outside": ((2, 5, 3, 7, 9), (2, 4, 6, 5, 3), 1.6),
+    "ragged_outside": ((2, 5, 3, 7, 9), "uniform", 1.6, (4, 6, 5)),
+    # the smooth field with 10 % of its points redrawn uniform in [-1, 1]
+    "mixed": ((1, 32, 16, 64, 64), "mixed", 0.05, None),
+    # a violent deformation: displacements up to half the volume
+    "overflow": ((1, 32, 16, 64, 64), "smooth", 0.5, None),
+    # every point outside the volume on every axis: both gradients 0
+    "all_outside": ((2, 8, 4, 8, 8), "outside", 1.4, None),
+    # the cell centres exactly: every coordinate an integer, at the tents'
+    # kinks, where the kernel takes the cell above as F.grid_sample does
+    "integer_coordinates": ((1, 32, 16, 64, 64), "identity", 0.0, None),
+    # C not a multiple of 4, at the training shape's spatial size
+    "ragged_c5": ((1, 5, 16, 64, 64), "smooth", 0.05, None),
+    # two channel chunks with a tail, tiles overhanging Ho and Wo
+    "tile_edges_c40": ((1, 40, 5, 9, 37), "uniform", 1.1, (3, 7, 45)),
 }
+
+
+def bwd_case(name):
+    """(vol, grid) of a BWD_CASES case, f32 on the CPU."""
+    vshape, kind, r, out = BWD_CASES[name]
+    b, _, d, h, w = vshape
+    if kind == "uniform":
+        return case(vshape, (b, *(out or (d, h, w)), 3), r, seed=5)
+    vol, _ = case(vshape, (1, 1, 1, 1, 3), 1.0, seed=3)
+    if kind == "outside":
+        g = torch.rand((b, d, h, w, 3),
+                       generator=torch.Generator().manual_seed(4)) * 2 - 1
+        return vol, g.sign() * r + g * 0.1  # |g| > 1.4 on every axis
+    grid = smooth(b, d, h, w, r, seed=4, kinks=kind == "identity")
+    if kind == "mixed":
+        g = torch.Generator().manual_seed(5)
+        rand = avoid_kinks(torch.rand(grid.shape, generator=g) * 2 - 1,
+                           (w, h, d))
+        pick = torch.rand((*grid.shape[:-1], 1), generator=g) < 0.1
+        grid = torch.where(pick, rand, grid)
+    return vol, grid
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(BWD_CASES))
 def test_backward_kernel_matches_plain(cuda, name):
-    vshape, gshape, r = BWD_CASES[name]
-    if gshape is None:
-        vol, _ = case(vshape, (1, 1, 1, 1, 3), 1.0, seed=3)
-        grid = smooth(vshape[0], *vshape[2:], r, seed=4)
-    else:
-        vol, grid = case(vshape, gshape, r, seed=5)
-    gout = torch.randn((vshape[0], vshape[1], *grid.shape[1:4]),
+    vol, grid = bwd_case(name)
+    gout = torch.randn((*vol.shape[:2], *grid.shape[1:4]),
                        generator=torch.Generator().manual_seed(6))
     vol, grid, gout = vol.to(cuda), grid.to(cuda), gout.to(cuda)
     before = W.WARP3D_BWD.launches
@@ -267,6 +365,27 @@ def test_backward_kernel_matches_plain(cuda, name):
     pv, pg = W.warp3d_backward_plain(vol, grid, gout)
     assert rel(gv, pv) <= GRAD_TOL, rel(gv, pv)
     assert rel(gg, pg) <= GRAD_TOL, rel(gg, pg)
+    if BWD_CASES[name][1] == "outside":
+        assert not bool(gv.any()) and not bool(gg.any())
+
+
+def test_backward_cases_reach_what_they_name():
+    """On the CPU, what each card case is for: the share of points inside
+    the volume, the integer coordinates, the output grids' shapes."""
+    inside = {}
+    for name in BWD_CASES:
+        vol, grid = bwd_case(name)
+        assert grid.shape[0] == vol.shape[0] and grid.shape[-1] == 3
+        inside[name] = float((grid.abs() <= 1).all(-1).float().mean())
+    assert inside["all_outside"] == 0.0 and inside["canonical_smooth"] > 0.9
+    assert 0.8 < inside["mixed"] < 1.0
+    _, grid = bwd_case("integer_coordinates")
+    d, h, w = grid.shape[1:4]
+    for a, size in enumerate((w, h, d)):
+        c = ((grid[..., a].double() + 1) * size - 1) / 2
+        assert float((c - c.round()).abs().max()) < 1e-4
+    assert bwd_case("tile_edges_c40")[1].shape[1:4] == (3, 7, 45)
+    assert bwd_case("ragged_c5")[0].shape[1] == 5
 
 
 @pytest.mark.cuda
