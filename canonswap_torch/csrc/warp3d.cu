@@ -46,7 +46,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 #include "chain.cuh"

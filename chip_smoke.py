@@ -536,17 +536,21 @@ def phase_qconv_kernel() -> dict:
     return {"timings": timings, "worst": worst}
 
 
-def device_parts_ms(fn) -> list:
-    """[kernel name, device ms] of every device event of one call of ``fn``,
-    in time order, from one torch.profiler pass."""
+def device_parts_ms(fn, calls: int = 1) -> list:
+    """[kernel name, device ms] of every device event of ``calls`` calls of
+    ``fn``, in time order, from one torch.profiler pass.  A pass of one
+    call runs first and is thrown away: on the card a process's first pass
+    recorded some of the kernels, or none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    for n in (1, calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
     dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                  key=lambda e: e.time_range.start)
     if not dev:
@@ -2458,21 +2462,9 @@ WARP_BWD_PARTS = (("prep", "bwd_prep_kernel"),
 
 def warp_bwd_parts_ms(fn, calls: int = 5) -> dict:
     """Device ms of each of the backward's kernels: the median over
-    ``calls`` calls of ``fn`` in one torch.profiler pass, after a pass of
-    one call that is thrown away (a first pass in the process recorded one
-    kernel of three, or none), with how many of each the pass recorded."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for n in (1, calls):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-    events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
-              if e.device_type == DeviceType.CUDA]
+    ``calls`` calls of ``fn`` in one torch.profiler pass, with how many of
+    each the pass recorded."""
+    events = device_parts_ms(fn, calls)
     seen = {part: [ms for name, ms in events if sub in name]
             for part, sub in WARP_BWD_PARTS}
     if not all(seen.values()):
