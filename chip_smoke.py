@@ -2455,7 +2455,8 @@ def warp_bwd_bound(vol, grid, gout):
 
 # the backward's three kernels, in launch order, by a substring of their
 # CUDA kernel names
-WARP_BWD_PARTS = (("prep", "bwd_prep_kernel"),
+WARP_BWD_PARTS = (("classify", "bwd_classify_kernel"),
+                  ("prep", "bwd_prep_kernel"),
                   ("tiles", "warp3d_backward_kernel"),
                   ("finish", "bwd_finish_kernel"))
 
@@ -2487,10 +2488,15 @@ def time_warp_bwd(vol, grid, gout, plain: bool = True) -> dict:
     backward; in turns: plain, kernel, kernel, plain), the library backward
     (aten::grid_sampler_3d_backward) and the bound, with the share of
     points inside the volume."""
+    from canonswap_torch.ops.cuda import warp as W
     from canonswap_torch.ops.cuda.warp import (warp3d_backward_cuda,
                                                warp3d_backward_plain)
 
-    out = {}
+    scratch = W._launch_backward(vol, grid, gout, torch.empty_like(vol),
+                                 torch.empty_like(grid))
+    out = {"tiles_coherent_noisy": W.backward_tile_counts(scratch,
+                                                          vol).tolist()}
+    del scratch
     if plain:
         out["plain_ms"] = [time_ms(lambda: warp3d_backward_plain(
             vol, grid, gout), iters=5)]
