@@ -199,9 +199,13 @@ cudaError_t launch(const void* vol, const void* grid, void* out, int B, int C, i
 // warps resident per SM set its time, not the bytes or the REDs' count.
 //
 // Measured on an H100 80GB HBM3 at 700 W (tools/warp_bwd_sweep.py, PERF.md
-// section 6 row 9), whole call at CANONICAL B=8 f32: 0.355 ms on the
-// smooth field, 0.371 on the random one, against 1.245 and 1.973 for
-// aten::grid_sampler_3d_backward.  Tried there and dropped:
+// section 6 row 9), whole call at CANONICAL B=8 f32: 0.352 ms on the
+// noisy smooth field, 0.369 on the random one, 0.339 on a turned one (a
+// head turning), against 1.248, 1.977 and 0.853 for
+// aten::grid_sampler_3d_backward.  On the training step's seeded,
+// near-identity fields the library is faster (0.27 to 0.29 against 0.34):
+// there its NCDHW atomics from neighbouring threads fall on one line, and
+// this design pays its 0.13 ms layout round trip.  Tried there and dropped:
 //   - a per-tile box of grad_vol in shared memory, flushed with one RED per
 //     box voxel and 4 channels, in two forms (f32 shared atomics; the
 //     tile's (point, corner) pairs sorted by voxel): 1.3 to 1.9x slower on
@@ -209,17 +213,21 @@ cudaError_t launch(const void* vol, const void* grid, void* out, int B, int C, i
 //     not bound the tiles kernel and the box costs barriers and occupancy;
 //   - gathering the corners from the NCDHW volume and skipping vol_cl:
 //     1.35x slower on the smooth field, 3.2x on the random one;
+//   - tiles whose rows of 32 points fall on distinct voxels of at most 4
+//     lines scattered in NCDHW with scalar REDs, the round trip skipped
+//     where no tile needs it: 0.37 to 0.49 ms on the training step's
+//     fields, which it classed coherent, against 0.34 without it;
 //   - returning acc as a channels_last_3d grad_vol, without finish: the
 //     consumer's copy to NCDHW (PyTorch's) takes 0.144 ms, finish 0.059.
 //
 // Constants, chosen there: tiles of 1 x 4 x 32 points (rows of 32 along x:
 // neighbouring lanes read and RED neighbouring lines), blocks of 256
-// threads (4 passes of 32 points), at most 80 registers so 3 blocks fit an
-// SM with no spills.  2 blocks per SM (84 registers) were 7 % slower, 4
-// (64, spilling) level, 5 (48) 11 to 19 % slower; tiles of 2 x 8 x 8 or
-// 1 x 1 x 32, and blocks of 512, within 2 %.  The WARP_BWD_* macros exist
-// for tools/warp_bwd_sweep.py, which builds variants with -D; the port
-// builds the defaults.
+// threads (4 passes of 32 points), at most 80 registers with 3 blocks per
+// SM, no spills.  4 blocks per SM (64 registers, 16 bytes spilled), tiles
+// of 2 x 8 x 8 or 1 x 1 x 32 and blocks of 512 were within 3 %; 5 blocks
+// per SM (48 registers) 11 to 19 % slower.  The WARP_BWD_* macros exist for
+// tools/warp_bwd_sweep.py, which builds variants with -D; the port builds
+// the defaults.
 
 #ifndef WARP_BWD_TILE_Z
 #define WARP_BWD_TILE_Z 1
@@ -236,9 +244,6 @@ cudaError_t launch(const void* vol, const void* grid, void* out, int B, int C, i
 #ifndef WARP_BWD_MIN_BLOCKS
 #define WARP_BWD_MIN_BLOCKS 3
 #endif
-#ifndef WARP_BWD_MAX_LINES
-#define WARP_BWD_MAX_LINES 4
-#endif
 
 constexpr int TILE_Z = WARP_BWD_TILE_Z, TILE_Y = WARP_BWD_TILE_Y, TILE_X = WARP_BWD_TILE_X;
 constexpr int TILE_POINTS = TILE_Z * TILE_Y * TILE_X;
@@ -247,30 +252,65 @@ constexpr int LANES = 8;          // lanes per output point, 4 channels each
 constexpr int CHUNK = 4 * LANES;  // channels per sweep over the tile
 constexpr int POINTS_PER_PASS = BWD_THREADS / LANES;
 constexpr int PASSES = (TILE_POINTS + POINTS_PER_PASS - 1) / POINTS_PER_PASS;
-constexpr int HALVES = BWD_THREADS / TILE_POINTS;  // channel groups on a coherent tile
-constexpr int MAX_LINES = WARP_BWD_MAX_LINES;       // a coherent row's lines of 32 voxels
 constexpr int TT = 32;  // transpose tile: 32 voxels x 32 channels
 static_assert(BWD_THREADS % 32 == 0 && BWD_THREADS <= 1024, "whole warps");
-static_assert(TILE_X == 32, "a tile row is one warp");
-static_assert(BWD_THREADS % TILE_POINTS == 0, "whole channel groups");
 
 struct BwdShape {
   int C, Cp, D, H, W, Do, Ho, Wo, tiles_z, tiles_y, tiles_x;
 };
 
-// flags in the scratch, zeroed before the classify kernel: whether any tile
-// is coherent, whether any is noisy, and the count of each
-enum { ANY_COHERENT = 0, ANY_NOISY = 1, N_COHERENT = 2, N_NOISY = 3, N_FLAGS = 4 };
+// vol (B, C, S) -> vol_cl (B, S, Cp), channels zero-padded to Cp; the
+// accumulator acc (B, S, Cp) zeroed.  Blocks of 32 x 8 threads, one 32 x 32
+// tile each through shared memory, so both sides are read and written along
+// their contiguous axis.
+__global__ void __launch_bounds__(TT * 8) bwd_prep_kernel(const float* __restrict__ vol,
+                                                         float* __restrict__ vol_cl,
+                                                         float* __restrict__ acc, int C, int Cp,
+                                                         int64_t S) {
+  __shared__ float t[TT][TT + 1];
+  allow_next_grid();
+  const int64_t s0 = (int64_t)blockIdx.x * TT, b = blockIdx.z;
+  const int c0 = blockIdx.y * TT, tx = threadIdx.x;
+#pragma unroll
+  for (int r = threadIdx.y; r < TT; r += 8) {
+    const int c = c0 + r;
+    const int64_t s = s0 + tx;
+    t[r][tx] = (c < C && s < S) ? vol[(b * C + c) * S + s] : 0.0f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = threadIdx.y; r < TT; r += 8) {
+    const int64_t s = s0 + r;
+    const int c = c0 + tx;
+    if (s < S && c < Cp) {
+      const int64_t o = (b * S + s) * Cp + c;
+      vol_cl[o] = t[tx][r];
+      acc[o] = 0.0f;
+    }
+  }
+}
 
-// tile t -> its sample b and its position (tz, ty, tx) in the tile grid
-__device__ __forceinline__ int64_t decode_tile(int t, const BwdShape& sh, int& tz, int& ty,
-                                               int& tx) {
-  tx = t % sh.tiles_x;
-  t /= sh.tiles_x;
-  ty = t % sh.tiles_y;
-  t /= sh.tiles_y;
-  tz = t % sh.tiles_z;
-  return t / sh.tiles_z;
+// acc (B, S, Cp) -> grad_vol (B, C, S), the same tiling
+__global__ void __launch_bounds__(TT * 8) bwd_finish_kernel(const float* __restrict__ acc,
+                                                           float* __restrict__ gvol, int C,
+                                                           int Cp, int64_t S) {
+  __shared__ float t[TT][TT + 1];
+  wait_for_prior_grid();
+  const int64_t s0 = (int64_t)blockIdx.x * TT, b = blockIdx.z;
+  const int c0 = blockIdx.y * TT, tx = threadIdx.x;
+#pragma unroll
+  for (int r = threadIdx.y; r < TT; r += 8) {
+    const int64_t s = s0 + r;
+    const int c = c0 + tx;
+    t[r][tx] = (s < S && c < C) ? acc[(b * S + s) * Cp + c] : 0.0f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = threadIdx.y; r < TT; r += 8) {
+    const int c = c0 + r;
+    const int64_t s = s0 + tx;
+    if (c < C && s < S) gvol[(b * C + c) * S + s] = t[tx][r];
+  }
 }
 
 // point i of a tile (x fastest) -> its flat index p in (Do, Ho, Wo); false
@@ -284,198 +324,35 @@ __device__ __forceinline__ bool tile_point(int i, int tz, int ty, int tx, const 
   return i < TILE_POINTS && zo < sh.Do && yo < sh.Ho && xo < sh.Wo;
 }
 
-// 1. classify: a thread per tile point, a warp per row of 32.  A row is
-// coherent where its points with a tap inside the volume have distinct base
-// voxels (floor of the coordinate on each axis), so that no two lanes of a
-// RED instruction on one NCDHW plane hit one address, and those voxels lie
-// on at most MAX_LINES lines of 32; a tile is coherent where every row is.
-__global__ void __launch_bounds__(TILE_POINTS) bwd_classify_kernel(
-    const float* __restrict__ grid, unsigned char* __restrict__ kind, int* __restrict__ flags,
-    BwdShape sh) {
-  allow_next_grid();
-  int tz, ty, tx;
-  const int64_t b = decode_tile(blockIdx.x, sh, tz, ty, tx);
-  const int64_t P = (int64_t)sh.Do * sh.Ho * sh.Wo;
-  const int lane = threadIdx.x & 31;
-  int64_t p;
-  bool valid = false;
-  long long base = 0;
-  if (tile_point(threadIdx.x, tz, ty, tx, sh, p)) {
-    const float* g = grid + (b * P + p) * 3;
-    const Axis ax = axis_taps(g[0], sh.W);
-    const Axis ay = axis_taps(g[1], sh.H);
-    const Axis az = axis_taps(g[2], sh.D);
-    valid = (ax.v0 || ax.v1) && (ay.v0 || ay.v1) && (az.v0 || az.v1);
-    base = ((long long)az.i0 * sh.H + ay.i0) * sh.W + ax.i0;
-  }
-  // a lane without a tap gets a key of its own (bases are above -2**40)
-  const unsigned long long own = 0x8000000000000000ull | lane;
-  const unsigned same = __match_any_sync(0xffffffffu, valid ? (unsigned long long)base : own);
-  const bool distinct = __all_sync(0xffffffffu, !valid || __popc(same) == 1);
-  const unsigned line =
-      __match_any_sync(0xffffffffu, valid ? (unsigned long long)(base >> 5) : own);
-  const bool first = valid && __ffs(line) - 1 == lane;
-  const bool row_ok = distinct && __popc(__ballot_sync(0xffffffffu, first)) <= MAX_LINES;
-  const bool any = __syncthreads_or(valid);
-  const bool coherent = __syncthreads_and(row_ok);
-  if (threadIdx.x == 0) {
-    kind[blockIdx.x] = coherent;
-    if (any) {
-      atomicOr(flags + (coherent ? ANY_COHERENT : ANY_NOISY), 1);
-      atomicAdd(flags + (coherent ? N_COHERENT : N_NOISY), 1);
-    }
-  }
-}
-
-// 2. prep, per 32 x 32 tile of (voxels, channels) through shared memory:
-// grad_vol zeroed where coherent tiles add into it or nothing else writes
-// it; where any tile is noisy, vol (B, C, S) -> vol_cl (B, S, Cp), channels
-// zero-padded to Cp, and the accumulator acc (B, S, Cp) zeroed
-__global__ void __launch_bounds__(TT * 8) bwd_prep_kernel(const float* __restrict__ vol,
-                                                         float* __restrict__ vol_cl,
-                                                         float* __restrict__ acc,
-                                                         float* __restrict__ gvol,
-                                                         const int* __restrict__ flags, int C,
-                                                         int Cp, int64_t S) {
-  __shared__ float t[TT][TT + 1];
-  wait_for_prior_grid();  // the flags
-  allow_next_grid();
-  const bool noisy = flags[ANY_NOISY] != 0;
-  const int64_t s0 = (int64_t)blockIdx.x * TT, b = blockIdx.z;
-  const int c0 = blockIdx.y * TT, tx = threadIdx.x;
-  if (flags[ANY_COHERENT] != 0 || !noisy) {
-    for (int r = threadIdx.y; r < TT; r += 8) {
-      const int c = c0 + r;
-      const int64_t s = s0 + tx;
-      if (c < C && s < S) gvol[(b * C + c) * S + s] = 0.0f;
-    }
-  }
-  if (!noisy) return;
-  for (int r = threadIdx.y; r < TT; r += 8) {
-    const int c = c0 + r;
-    const int64_t s = s0 + tx;
-    t[r][tx] = (c < C && s < S) ? vol[(b * C + c) * S + s] : 0.0f;
-  }
-  __syncthreads();
-  for (int r = threadIdx.y; r < TT; r += 8) {
-    const int64_t s = s0 + r;
-    const int c = c0 + tx;
-    if (s < S && c < Cp) {
-      const int64_t o = (b * S + s) * Cp + c;
-      vol_cl[o] = t[tx][r];
-      acc[o] = 0.0f;
-    }
-  }
-}
-
-// 4. finish, where any tile is noisy: acc (B, S, Cp) -> grad_vol (B, C, S),
-// added to what the coherent tiles put there, if any, tiled as prep
-__global__ void __launch_bounds__(TT * 8) bwd_finish_kernel(const float* __restrict__ acc,
-                                                           float* __restrict__ gvol,
-                                                           const int* __restrict__ flags, int C,
-                                                           int Cp, int64_t S) {
-  __shared__ float t[TT][TT + 1];
-  wait_for_prior_grid();
-  if (flags[ANY_NOISY] == 0) return;
-  const bool add = flags[ANY_COHERENT] != 0;
-  const int64_t s0 = (int64_t)blockIdx.x * TT, b = blockIdx.z;
-  const int c0 = blockIdx.y * TT, tx = threadIdx.x;
-  for (int r = threadIdx.y; r < TT; r += 8) {
-    const int64_t s = s0 + r;
-    const int c = c0 + tx;
-    t[r][tx] = (s < S && c < C) ? acc[(b * S + s) * Cp + c] : 0.0f;
-  }
-  __syncthreads();
-  for (int r = threadIdx.y; r < TT; r += 8) {
-    const int c = c0 + r;
-    const int64_t s = s0 + tx;
-    if (c < C && s < S) {
-      float* o = gvol + (b * C + c) * S + s;
-      *o = add ? *o + t[tx][r] : t[tx][r];
-    }
-  }
-}
-
 // one vector RED of 4 f32 (red.global.add.v4.f32, sm_90)
 __device__ __forceinline__ void red_add4(float* p, float a, float b, float c, float d) {
   atomicAdd(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
 }
 
-// 3. tiles: one block per tile of TILE_Z x TILE_Y x TILE_X output points of
-// one sample.  A coherent tile: a thread per point and channel group (the
-// block's HALVES groups take every HALVES-th channel), its lanes along x,
-// corners gathered from vol and scalar REDs into grad_vol, both NCDHW.  A
-// noisy tile: 8 lanes per point, lane j holding channels c0 + 4j .. + 3 of
-// each chunk of 32, corners gathered from vol_cl with 16-byte loads and
-// vector REDs into acc.  grad_grid is written once per point either way.
+// One block per tile of TILE_Z x TILE_Y x TILE_X output points of one
+// sample; 8 lanes per point, lane j holding channels c0 + 4j .. + 3 of each
+// chunk of 32.
 __global__ void __launch_bounds__(BWD_THREADS, WARP_BWD_MIN_BLOCKS) warp3d_backward_kernel(
-    const float* __restrict__ vol, const float* __restrict__ vol_cl,
-    const float* __restrict__ grid, const float* __restrict__ gout, float* __restrict__ gvol,
-    float* __restrict__ acc, float* __restrict__ ggrid, const unsigned char* __restrict__ kind,
+    const float* __restrict__ vol_cl, const float* __restrict__ grid,
+    const float* __restrict__ gout, float* __restrict__ acc, float* __restrict__ ggrid,
     BwdShape sh) {
-  __shared__ float part[HALVES][TILE_POINTS][3];
-  int tz, ty, tx;
-  const int64_t b = decode_tile(blockIdx.x, sh, tz, ty, tx);
+  int t = blockIdx.x;
+  const int tx = t % sh.tiles_x;
+  t /= sh.tiles_x;
+  const int ty = t % sh.tiles_y;
+  t /= sh.tiles_y;
+  const int tz = t % sh.tiles_z;
+  const int64_t b = t / sh.tiles_z;
   const int64_t P = (int64_t)sh.Do * sh.Ho * sh.Wo;
   const int64_t S = (int64_t)sh.D * sh.H * sh.W;
-  const float* gob = gout + b * sh.C * P;
-
-  wait_for_prior_grid();  // grad_vol or acc zeroed, vol_cl written
-  allow_next_grid();
-
-  if (kind[blockIdx.x]) {
-    const int i = threadIdx.x % TILE_POINTS, h = threadIdx.x / TILE_POINTS;
-    int64_t p;
-    const bool mine = tile_point(i, tz, ty, tx, sh, p);
-    float sx = 0.0f, sy = 0.0f, sz = 0.0f;
-    if (mine) {
-      const float* g = grid + (b * P + p) * 3;
-      const Axis ax = axis_taps(g[0], sh.W);
-      const Axis ay = axis_taps(g[1], sh.H);
-      const Axis az = axis_taps(g[2], sh.D);
-#pragma unroll 1
-      for (int c = h; c < sh.C; c += HALVES) {
-        const float go = gob[(int64_t)c * P + p];
-        const float* vc = vol + (b * sh.C + c) * S;
-        float* gc = gvol + (b * sh.C + c) * S;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
-          if (!((dz ? az.v1 : az.v0) && (dy ? ay.v1 : ay.v0) && (dx ? ax.v1 : ax.v0))) continue;
-          const float wz = dz ? az.w1 : az.w0;
-          const float wy = dy ? ay.w1 : ay.w0;
-          const float wx = dx ? ax.w1 : ax.w0;
-          const int64_t vox = ((int64_t)(az.i0 + dz) * sh.H + (ay.i0 + dy)) * sh.W + (ax.i0 + dx);
-          const float s = go * __ldg(vc + vox);
-          sx += (dx ? 1.0f : -1.0f) * wy * wz * s;
-          sy += (dy ? 1.0f : -1.0f) * wx * wz * s;
-          sz += (dz ? 1.0f : -1.0f) * wx * wy * s;
-          atomicAdd(gc + vox, wz * wy * wx * go);
-        }
-      }
-    }
-    part[h][i][0] = sx;
-    part[h][i][1] = sy;
-    part[h][i][2] = sz;
-    __syncthreads();
-    if (h == 0 && mine) {
-#pragma unroll
-      for (int j = 1; j < HALVES; ++j) {
-        sx += part[j][i][0];
-        sy += part[j][i][1];
-        sz += part[j][i][2];
-      }
-      float* gg = ggrid + (b * P + p) * 3;
-      gg[0] = sx * (float)sh.W * 0.5f;
-      gg[1] = sy * (float)sh.H * 0.5f;
-      gg[2] = sz * (float)sh.D * 0.5f;
-    }
-    return;
-  }
-
   const int lane = threadIdx.x % LANES, slot = threadIdx.x / LANES;
   const float* vb = vol_cl + b * S * sh.Cp;
   float* ab = acc + b * S * sh.Cp;
+  const float* gob = gout + b * sh.C * P;
+
+  wait_for_prior_grid();  // vol_cl written, acc zeroed
+  allow_next_grid();
+
 #pragma unroll 1
   for (int q = 0; q < PASSES; ++q) {
     int64_t p;
@@ -552,13 +429,10 @@ extern "C" const char* warp3d_error_string(int err) {
 
 // f32 only, all contiguous: vol (B, C, D, H, W), grid (B, Do, Ho, Wo, 3),
 // grad_out (B, C, Do, Ho, Wo); writes grad_vol (B, C, D, H, W) and
-// grad_grid (B, Do, Ho, Wo, 3) whole.  scratch: 2 * B * D * H * W * Cp
-// floats (the channels-last volume, then the accumulator; Cp = C rounded up
-// to a multiple of 4), then N_FLAGS ints (what the tiles were: ANY_COHERENT,
-// ANY_NOISY, N_COHERENT, N_NOISY), then a byte per tile (at most one per
-// output point).  A memset of the flags and four kernels, chained: classify,
-// prep, tiles, finish.  Returns the cudaError_t of the launches (0 on
-// success).
+// grad_grid (B, Do, Ho, Wo, 3) whole.  scratch holds 2 * B * D * H * W * Cp
+// floats (the channels-last volume, then the accumulator), Cp = C rounded up
+// to a multiple of 4.  Three kernels, chained: prep, tiles, finish.  Returns
+// the cudaError_t of the launches (0 on success).
 extern "C" int warp3d_backward(const void* vol, const void* grid, const void* grad_out,
                                void* grad_vol, void* grad_grid, void* scratch, int B, int C,
                                int Cp, int D, int H, int W, int Do, int Ho, int Wo,
@@ -569,30 +443,20 @@ extern "C" int warp3d_backward(const void* vol, const void* grid, const void* gr
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* vol_cl = static_cast<float*>(scratch);
   float* acc = vol_cl + (int64_t)B * S * Cp;
-  int* flags = reinterpret_cast<int*>(acc + (int64_t)B * S * Cp);
-  unsigned char* kind = reinterpret_cast<unsigned char*>(flags + N_FLAGS);
-  const float* v = static_cast<const float*>(vol);
-  float* gv = static_cast<float*>(grad_vol);
+  const dim3 tgrid((unsigned)((S + TT - 1) / TT), (unsigned)((Cp + TT - 1) / TT), (unsigned)B);
+  bwd_prep_kernel<<<tgrid, dim3(TT, 8), 0, s>>>(static_cast<const float*>(vol), vol_cl, acc, C,
+                                                 Cp, S);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const BwdShape sh{C,  Cp, D,  H,  W, Do, Ho, Wo, (Do + TILE_Z - 1) / TILE_Z,
                     (Ho + TILE_Y - 1) / TILE_Y, (Wo + TILE_X - 1) / TILE_X};
-  const unsigned tiles = (unsigned)((int64_t)B * sh.tiles_z * sh.tiles_y * sh.tiles_x);
-  const dim3 tgrid((unsigned)((S + TT - 1) / TT), (unsigned)((Cp + TT - 1) / TT), (unsigned)B);
-  cudaError_t err = cudaMemsetAsync(flags, 0, N_FLAGS * sizeof(int), s);
-  if (err != cudaSuccess) return (int)err;
-  bwd_classify_kernel<<<tiles, TILE_POINTS, 0, s>>>(static_cast<const float*>(grid), kind, flags,
-                                                     sh);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = launch_after_prior(bwd_prep_kernel, tgrid, dim3(TT, 8), 0, s, v, vol_cl, acc, gv,
-                           static_cast<const int*>(flags), C, Cp, S);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_after_prior(warp3d_backward_kernel, dim3(tiles), dim3(BWD_THREADS), 0, s, v,
+  const int64_t tiles = (int64_t)B * sh.tiles_z * sh.tiles_y * sh.tiles_x;
+  err = launch_after_prior(warp3d_backward_kernel, dim3((unsigned)tiles), dim3(BWD_THREADS), 0, s,
                            static_cast<const float*>(vol_cl), static_cast<const float*>(grid),
-                           static_cast<const float*>(grad_out), gv, acc,
-                           static_cast<float*>(grad_grid),
-                           static_cast<const unsigned char*>(kind), sh);
+                           static_cast<const float*>(grad_out),
+                           acc, static_cast<float*>(grad_grid), sh);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_after_prior(bwd_finish_kernel, tgrid, dim3(TT, 8), 0, s,
-                                 static_cast<const float*>(acc), gv,
-                                 static_cast<const int*>(flags), C, Cp, S);
+                                 static_cast<const float*>(acc), static_cast<float*>(grad_vol),
+                                 C, Cp, S);
 }

@@ -95,42 +95,27 @@ def _launch_forward(vol: torch.Tensor, grid: torch.Tensor,
         out[0, 0].numel())
 
 
-def backward_scratch(vol: torch.Tensor, points: int) -> tuple[int, torch.Tensor]:
-    """The backward kernel's scratch for ``points`` output points a sample:
-    (Cp, a flat f32 buffer).  Cp is C rounded up to a multiple of 4, so a
-    voxel's channels start on 16 bytes.  The buffer holds the volume laid
-    out channels last (B, D, H, W, Cp), the grad_vol accumulator in that
-    layout, 4 int32 flags (whether any tile was coherent, whether any was
-    noisy, how many of each) and a byte per tile (at most one per output
-    point)."""
+def backward_scratch(vol: torch.Tensor) -> tuple[int, torch.Tensor]:
+    """The backward kernel's scratch: (Cp, buffer).  Cp is C rounded up to
+    a multiple of 4, so a voxel's channels start on 16 bytes; the buffer
+    (2, B, D, H, W, Cp) f32 holds the volume laid out channels last, then
+    the grad_vol accumulator in that layout."""
     b, c, d, h, w = vol.shape
     cp = -(-c // 4) * 4
-    n = 2 * b * d * h * w * cp + 4 + -(-b * points // 4)
-    return cp, torch.empty(n, dtype=torch.float32, device=vol.device)
-
-
-def backward_tile_counts(scratch: torch.Tensor, vol: torch.Tensor
-                         ) -> torch.Tensor:
-    """The (coherent, noisy) tile counts the kernel left in ``scratch``,
-    a view of 2 int32 (read after the launch has run)."""
-    b, c, d, h, w = vol.shape
-    at = 2 * b * d * h * w * (-(-c // 4) * 4)
-    return scratch[at:at + 4].view(torch.int32)[2:]
+    return cp, torch.empty((2, b, d, h, w, cp), dtype=torch.float32,
+                           device=vol.device)
 
 
 def _launch_backward(vol: torch.Tensor, grid: torch.Tensor,
                      grad_out: torch.Tensor, grad_vol: torch.Tensor,
-                     grad_grid: torch.Tensor) -> torch.Tensor:
-    """Launch the backward; it writes grad_vol and grad_grid whole.
-    Returns its scratch (``backward_tile_counts`` reads it)."""
+                     grad_grid: torch.Tensor) -> None:
+    """Launch the backward; it writes grad_vol and grad_grid whole."""
     b, c, d, h, w = vol.shape
-    do, ho, wo = grid.shape[1:4]
-    cp, scratch = backward_scratch(vol, do * ho * wo)
+    cp, scratch = backward_scratch(vol)
     WARP3D_BWD.launch_on(
         vol.device, vol.data_ptr(), grid.data_ptr(), grad_out.data_ptr(),
         grad_vol.data_ptr(), grad_grid.data_ptr(), scratch.data_ptr(), b, c,
-        cp, d, h, w, do, ho, wo)
-    return scratch
+        cp, d, h, w, *grid.shape[1:4])
 
 
 def _forward(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:

@@ -4,17 +4,16 @@
     python -m canonswap_torch.tools.warp_bwd_sweep
 
 Builds the source once per variant (``-D`` of WARP_BWD_TILE_Z / _Y / _X,
-WARP_BWD_THREADS, WARP_BWD_MIN_BLOCKS and WARP_BWD_MAX_LINES; one nvcc
-each, all started together),
+WARP_BWD_THREADS and WARP_BWD_MIN_BLOCKS; one nvcc each, all started
+together),
 then at CANONICAL B=8 f32 ((8, 32, 16, 64, 64) volume and grad_out) on four
 fields: ``smooth`` (cell centres plus a displacement uniform in +-0.05 for
 each point), ``mixed`` (the smooth field with 10 % of its points redrawn
 uniform in [-1, 1]), ``random`` (every point uniform in [-1, 1]) and
-``affine`` (the cell centres turned by 0.2 rad about z, scaled by 0.9 and
-shifted by 0.05: neighbouring points on neighbouring voxels, as the
-training step's fields).  For each
-variant and field it prints one JSON line: the tiles by kind (coherent, noisy),
-the four kernels' device times
+``turned`` (the cell centres turned by 0.2 rad about z, scaled by 0.9 and
+shifted by 0.05: a head turning, neighbouring points on neighbouring
+voxels).  For each
+variant and field it prints one JSON line: the three kernels' device times
 from one ``torch.profiler`` pass (prep, tiles, finish), the whole call's
 time with CUDA events (median of 5 rounds of 20 calls), and grad_vol's and
 grad_grid's max abs error over max |ref| against the plain gradient
@@ -40,26 +39,23 @@ import torch
 from canonswap_torch.ops.cuda import warp as W
 from canonswap_torch.ops.cuda.build import CudaKernel, build_all
 
-# (tile z, y, x, threads, min blocks per SM, a coherent row's most lines);
-# the first is the source's default; most lines 0 sends every tile with a
-# point inside the volume down the noisy path
+# (tile z, y, x, threads, min blocks per SM); the first is the source's
+# default
 VARIANTS = (
-    (1, 4, 32, 256, 3, 4),
-    (1, 4, 32, 256, 3, 0),
-    (1, 4, 32, 256, 3, 2),
-    (1, 4, 32, 256, 3, 8),
-    (1, 4, 32, 256, 2, 4),
-    (1, 8, 32, 256, 3, 4),
-    (1, 2, 32, 256, 3, 4),
+    (1, 4, 32, 256, 3),
+    (1, 4, 32, 256, 2),
+    (1, 4, 32, 256, 4),
+    (1, 1, 32, 256, 4),
+    (2, 8, 8, 256, 4),
+    (1, 4, 32, 512, 2),
 )
 SHAPE = (8, 32, 16, 64, 64)
-PARTS = (("classify", "bwd_classify_kernel"), ("prep", "bwd_prep_kernel"),
-         ("tiles", "warp3d_backward_kernel"), ("finish", "bwd_finish_kernel"))
+PARTS = (("prep", "bwd_prep_kernel"), ("tiles", "warp3d_backward_kernel"),
+         ("finish", "bwd_finish_kernel"))
 
 
 def variant_kernel(v) -> CudaKernel:
-    names = ("TILE_Z", "TILE_Y", "TILE_X", "THREADS", "MIN_BLOCKS",
-             "MAX_LINES")
+    names = ("TILE_Z", "TILE_Y", "TILE_X", "THREADS", "MIN_BLOCKS")
     return CudaKernel("warp3d.cu", "warp3d_backward", W.WARP3D_BWD.argtypes,
                       defines=tuple(f"WARP_BWD_{n}={x}"
                                     for n, x in zip(names, v)))
@@ -79,10 +75,10 @@ def fields(gen: torch.Generator, dev) -> dict:
     rand = torch.rand((b, d, h, w, 3), generator=gen) * 2 - 1
     return {k: v.to(dev).contiguous() for k, v in
             (("smooth", smooth), ("mixed", mixed), ("random", rand),
-             ("affine", affine_grid(b, d, h, w)))}
+             ("turned", turned_grid(b, d, h, w)))}
 
 
-def affine_grid(b, d, h, w, turn=0.2, scale=0.9, shift=0.05):
+def turned_grid(b, d, h, w, turn=0.2, scale=0.9, shift=0.05):
     """The cell centres turned by ``turn`` rad about z, scaled and shifted:
     a smooth field whose neighbouring points fall on neighbouring voxels."""
     axes = [(torch.arange(n, dtype=torch.float64) + 0.5) / n * 2 - 1
@@ -92,7 +88,7 @@ def affine_grid(b, d, h, w, turn=0.2, scale=0.9, shift=0.05):
     gx = scale * (cos * xx - sin * yy) + shift
     gy = scale * (sin * xx + cos * yy) + shift
     grid = torch.stack([gx, gy, zz * scale + shift], -1)[None]
-    return grid.expand(b, -1, -1, -1, -1).float()
+    return grid.expand(b, -1, -1, -1, -1).float().contiguous()
 
 
 def run(kernel: CudaKernel, vol, grid, gout):
@@ -102,8 +98,8 @@ def run(kernel: CudaKernel, vol, grid, gout):
     W.WARP3D_BWD = kernel
     try:
         gv, gg = torch.empty_like(vol), torch.empty_like(grid)
-        scratch = W._launch_backward(vol, grid, gout, gv, gg)
-        return gv, gg, scratch
+        W._launch_backward(vol, grid, gout, gv, gg)
+        return gv, gg
     finally:
         W.WARP3D_BWD = real
 
@@ -175,11 +171,9 @@ def main() -> int:
     rows = {}
     for v, k in zip(VARIANTS, kernels):
         for name, grid in grids.items():
-            scratch = run(k, vol, grid, gout)[2]
             rows[v, name] = {
                 "variant": list(v), "default": v == VARIANTS[0],
-                "field": name, "tiles": W.backward_tile_counts(
-                    scratch, vol).tolist(),
+                "field": name,
                 "parts_ms": parts_ms(lambda: run(k, vol, grid, gout))}
     for v, k in zip(VARIANTS, kernels):
         for name, grid in grids.items():
@@ -193,7 +187,7 @@ def main() -> int:
     for name, grid in grids.items():
         pv, pg = W.warp3d_backward_plain(vol, grid, gout)
         for v, k in zip(VARIANTS, kernels):
-            gv, gg, _ = run(k, vol, grid, gout)
+            gv, gg = run(k, vol, grid, gout)
             rows[v, name].update(grad_vol_rel=max_rel(gv, pv),
                                  grad_grid_rel=max_rel(gg, pg))
         del pv, pg

@@ -82,11 +82,12 @@ Phases, one JSON line each:
      unflagged run's inside the warped mask;
  20. warp bwd kernel: the exact warp's backward kernel against its plain
      gradient (F.grid_sample's autograd backward) at CANONICAL B=8 f32 on
-     the smooth, a random and a mixed field, timed there beside the plain
-     version, the library backward and its bound, with each of its three
-     kernels' device time (parts_ms); and on a violent deformation, integer
-     coordinates, a field wholly outside the volume, C = 5, C = 40 on
-     ragged tiles and a small ragged shape with points outside;
+     the smooth, a random, a mixed and a turned field, timed there beside
+     the plain version, the library backward and its bound, with each of
+     its three kernels' device time (parts_ms); and on a violent
+     deformation, integer coordinates, a field wholly outside the volume,
+     C = 5, C = 40 on ragged tiles and a small ragged shape with points
+     outside;
  21. train step: runtime/train.py at CANONICAL f32, B=8, five steps (the
      motion heads held in range by stated constants), launches per step;
      first its gradients through the kernel backward against those through
@@ -2455,8 +2456,7 @@ def warp_bwd_bound(vol, grid, gout):
 
 # the backward's three kernels, in launch order, by a substring of their
 # CUDA kernel names
-WARP_BWD_PARTS = (("classify", "bwd_classify_kernel"),
-                  ("prep", "bwd_prep_kernel"),
+WARP_BWD_PARTS = (("prep", "bwd_prep_kernel"),
                   ("tiles", "warp3d_backward_kernel"),
                   ("finish", "bwd_finish_kernel"))
 
@@ -2488,15 +2488,10 @@ def time_warp_bwd(vol, grid, gout, plain: bool = True) -> dict:
     backward; in turns: plain, kernel, kernel, plain), the library backward
     (aten::grid_sampler_3d_backward) and the bound, with the share of
     points inside the volume."""
-    from canonswap_torch.ops.cuda import warp as W
     from canonswap_torch.ops.cuda.warp import (warp3d_backward_cuda,
                                                warp3d_backward_plain)
 
-    scratch = W._launch_backward(vol, grid, gout, torch.empty_like(vol),
-                                 torch.empty_like(grid))
-    out = {"tiles_coherent_noisy": W.backward_tile_counts(scratch,
-                                                          vol).tolist()}
-    del scratch
+    out = {}
     if plain:
         out["plain_ms"] = [time_ms(lambda: warp3d_backward_plain(
             vol, grid, gout), iters=5)]
@@ -2542,18 +2537,21 @@ def phase_warp_bwd_kernel() -> dict:
     against the plain gradient (``F.grid_sample``'s autograd backward in
     f32): grad_vol and grad_grid, max abs over max |ref| <= F32_TOL, at
     CANONICAL B=8 f32 (the training path's shape) on the smooth in-range
-    field, a random one and a mixed one (the smooth field with 10 % of its
-    points random), and at B=1 on a violent deformation (displacement
+    field, a random one, a mixed one (the smooth field with 10 % of its
+    points random) and a turned one (the cell centres turned by 0.2 rad,
+    scaled by 0.9: a head turning), and at B=1 on a violent deformation (displacement
     +-0.5), the cell centres exactly (integer coordinates), a field wholly
     outside the volume (both gradients exactly 0), C = 5 at the training
     spatial size, C = 40 (two channel chunks with a tail) on an output
     grid whose tiles overhang it, and a small ragged shape with points
-    outside.  The three B=8 fields are timed beside the plain version, the
+    outside.  The four B=8 fields are timed beside the plain version, the
     library backward and the bound, with each kernel's device time from one
     torch.profiler pass (parts_ms), taken before the first autograd call:
     once the autograd engine had run on the card, a later profiler pass
     saw no device event.  The training step's own fields are checked and
     timed in phase_train_step."""
+    from canonswap_torch.tools.warp_bwd_sweep import turned_grid
+
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(30)
     cases, timings = [], {}
@@ -2565,6 +2563,7 @@ def phase_warp_bwd_kernel() -> dict:
         "random": (torch.rand((b, 16, 64, 64, 3), generator=gen) * 2
                    - 1).to(dev),
         "mixed": mixed_grid(b, 16, 64, 64, gen, dev),
+        "turned": turned_grid(b, 16, 64, 64).to(dev),
     }
     from canonswap_torch.ops.cuda.warp import warp3d_backward_cuda
 
@@ -3124,6 +3123,9 @@ def main() -> int:
         "mixed_field_ms": float(np.median(
             bwd["timings"]["mixed"]["kernel_ms"])),
         "mixed_field_library_ms": bwd["timings"]["mixed"]["library_ms"],
+        "turned_field_ms": float(np.median(
+            bwd["timings"]["turned"]["kernel_ms"])),
+        "turned_field_library_ms": bwd["timings"]["turned"]["library_ms"],
         "parts_ms": smooth_bwd["parts_ms"],
         "train_fields_ms": [float(np.median(f["kernel_ms"]))
                             for f in train["warp_bwd_fields"]],

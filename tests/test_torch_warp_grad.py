@@ -174,24 +174,16 @@ def test_backward_wrapper_refuses_what_the_kernel_does_not_take(
 
 @pytest.mark.parametrize("c", [1, 4, 5, 32, 33])
 def test_backward_scratch_layout(c):
-    """Cp is C rounded up to 4; the scratch is one flat f32 buffer on vol's
-    device: the channels-last volume and the accumulator (B, D, H, W, Cp)
-    each, the accumulator on 16 bytes (its corner rows are float4s), 4
-    int32 flags, then a byte per output point; the tile counts are flags
-    2 and 3."""
+    """Cp is C rounded up to 4; the scratch is the channels-last volume and
+    the accumulator, (2, B, D, H, W, Cp) f32 contiguous on vol's device,
+    the accumulator starting on 16 bytes (its corner rows are float4s)."""
     vol = torch.zeros((2, c, 3, 5, 7))
-    points = 11
-    cp, scratch = W.backward_scratch(vol, points)
+    cp, scratch = W.backward_scratch(vol)
     assert cp % 4 == 0 and c <= cp < c + 4
-    cl = 2 * 3 * 5 * 7 * cp
-    assert scratch.dim() == 1 and scratch.dtype == torch.float32
-    assert scratch.numel() * 4 >= 2 * cl * 4 + 16 + 2 * points
-    assert scratch.numel() * 4 < 2 * cl * 4 + 16 + 2 * points + 4
+    assert tuple(scratch.shape) == (2, 2, 3, 5, 7, cp)
+    assert scratch.dtype == torch.float32 and scratch.is_contiguous()
     assert scratch.device == vol.device
-    assert scratch.data_ptr() % 16 == 0 and (cl * 4) % 16 == 0
-    scratch[2 * cl:2 * cl + 4].view(torch.int32).copy_(
-        torch.tensor([1, 1, 5, 9], dtype=torch.int32))
-    assert W.backward_tile_counts(scratch, vol).tolist() == [5, 9]
+    assert scratch[1].data_ptr() % 16 == 0 and scratch[0].data_ptr() % 16 == 0
 
 
 def test_backward_launch_passes_shapes_and_scratch(monkeypatch):
@@ -205,12 +197,11 @@ def test_backward_launch_passes_shapes_and_scratch(monkeypatch):
     grid = torch.zeros((2, 4, 6, 11, 3))
     gout = torch.zeros((2, 5, 4, 6, 11))
     gv, gg = torch.empty_like(vol), torch.empty_like(grid)
-    scratch = W._launch_backward(vol, grid, gout, gv, gg)
+    W._launch_backward(vol, grid, gout, gv, gg)
     ((device, args),) = seen
     assert device == vol.device
     assert args[:5] == tuple(t.data_ptr() for t in (vol, grid, gout, gv, gg))
-    assert args[5] == scratch.data_ptr()
-    assert scratch.numel() == W.backward_scratch(vol, 4 * 6 * 11)[1].numel()
+    assert args[5] not in args[:5]
     assert args[6:] == (2, 5, 8, 3, 7, 9, 4, 6, 11)
 
 
@@ -325,6 +316,8 @@ BWD_CASES = {
     "ragged_outside": ((2, 5, 3, 7, 9), "uniform", 1.6, (4, 6, 5)),
     # the smooth field with 10 % of its points redrawn uniform in [-1, 1]
     "mixed": ((1, 32, 16, 64, 64), "mixed", 0.05, None),
+    # the cell centres turned by 0.2 rad, scaled by 0.9: a head turning
+    "turned": ((1, 32, 16, 64, 64), "turned", 0.0, None),
     # a violent deformation: displacements up to half the volume
     "overflow": ((1, 32, 16, 64, 64), "smooth", 0.5, None),
     # every point outside the volume on every axis: both gradients 0
@@ -346,6 +339,10 @@ def bwd_case(name):
     if kind == "uniform":
         return case(vshape, (b, *(out or (d, h, w)), 3), r, seed=5)
     vol, _ = case(vshape, (1, 1, 1, 1, 3), 1.0, seed=3)
+    if kind == "turned":
+        from canonswap_torch.tools.warp_bwd_sweep import turned_grid
+
+        return vol, avoid_kinks(turned_grid(b, d, h, w), (w, h, d))
     if kind == "outside":
         g = torch.rand((b, d, h, w, 3),
                        generator=torch.Generator().manual_seed(4)) * 2 - 1
