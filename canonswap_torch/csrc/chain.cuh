@@ -23,11 +23,11 @@ __device__ __forceinline__ void wait_for_prior_grid() {
   asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
-// launch kernel<<<grid, block, smem, s>>>(args...) so that it may start
+// launch kernel<<<grid, block, 0, s>>>(args...) so that it may start
 // while the kernel before it on s drains; it calls wait_for_prior_grid
 // before it reads that kernel's output
 template <typename... Params, typename... Args>
-cudaError_t launch_after_prior(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+cudaError_t launch_after_prior(void (*kernel)(Params...), dim3 grid, dim3 block,
                                cudaStream_t s, Args... args) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -35,7 +35,7 @@ cudaError_t launch_after_prior(void (*kernel)(Params...), dim3 grid, dim3 block,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = block;
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = 0;
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;

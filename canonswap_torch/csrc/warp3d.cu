@@ -198,8 +198,8 @@ cudaError_t launch(const void* vol, const void* grid, void* out, int B, int C, i
 // operations (grid, grad_out, then per corner a load and a RED), so the
 // warps resident per SM set its time, not the bytes or the REDs' count.
 //
-// Measured on an H100 80GB HBM3 at 700 W (tools/warp_bwd_sweep.py, PERF.md
-// section 6 row 9), whole call at CANONICAL B=8 f32: 0.352 ms on the
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py's warp_bwd_kernel,
+// PERF.md section 6 row 9), whole call at CANONICAL B=8 f32: 0.352 ms on the
 // noisy smooth field, 0.369 on the random one, 0.339 on a turned one (a
 // head turning), against 1.248, 1.977 and 0.853 for
 // aten::grid_sampler_3d_backward.  On the training step's seeded,
@@ -220,40 +220,23 @@ cudaError_t launch(const void* vol, const void* grid, void* out, int B, int C, i
 //   - returning acc as a channels_last_3d grad_vol, without finish: the
 //     consumer's copy to NCDHW (PyTorch's) takes 0.144 ms, finish 0.059.
 //
-// Constants, chosen there: tiles of 1 x 4 x 32 points (rows of 32 along x:
+// Constants, chosen there by timing variants of this source built with
+// other values: tiles of 1 x 4 x 32 points (rows of 32 along x:
 // neighbouring lanes read and RED neighbouring lines), blocks of 256
 // threads (4 passes of 32 points), at most 80 registers with 3 blocks per
 // SM, no spills.  4 blocks per SM (64 registers, 16 bytes spilled), tiles
 // of 2 x 8 x 8 or 1 x 1 x 32 and blocks of 512 were within 3 %; 5 blocks
-// per SM (48 registers) 11 to 19 % slower.  The WARP_BWD_* macros exist for
-// tools/warp_bwd_sweep.py, which builds variants with -D; the port builds
-// the defaults.
+// per SM (48 registers) 11 to 19 % slower.
 
-#ifndef WARP_BWD_TILE_Z
-#define WARP_BWD_TILE_Z 1
-#endif
-#ifndef WARP_BWD_TILE_Y
-#define WARP_BWD_TILE_Y 4
-#endif
-#ifndef WARP_BWD_TILE_X
-#define WARP_BWD_TILE_X 32
-#endif
-#ifndef WARP_BWD_THREADS
-#define WARP_BWD_THREADS 256
-#endif
-#ifndef WARP_BWD_MIN_BLOCKS
-#define WARP_BWD_MIN_BLOCKS 3
-#endif
-
-constexpr int TILE_Z = WARP_BWD_TILE_Z, TILE_Y = WARP_BWD_TILE_Y, TILE_X = WARP_BWD_TILE_X;
+constexpr int TILE_Z = 1, TILE_Y = 4, TILE_X = 32;
 constexpr int TILE_POINTS = TILE_Z * TILE_Y * TILE_X;
-constexpr int BWD_THREADS = WARP_BWD_THREADS;
-constexpr int LANES = 8;          // lanes per output point, 4 channels each
-constexpr int CHUNK = 4 * LANES;  // channels per sweep over the tile
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_MIN_BLOCKS = 3;  // blocks per SM: at most 80 registers
+constexpr int LANES = 8;           // lanes per output point, 4 channels each
+constexpr int CHUNK = 4 * LANES;   // channels per sweep over the tile
 constexpr int POINTS_PER_PASS = BWD_THREADS / LANES;
 constexpr int PASSES = (TILE_POINTS + POINTS_PER_PASS - 1) / POINTS_PER_PASS;
 constexpr int TT = 32;  // transpose tile: 32 voxels x 32 channels
-static_assert(BWD_THREADS % 32 == 0 && BWD_THREADS <= 1024, "whole warps");
 
 struct BwdShape {
   int C, Cp, D, H, W, Do, Ho, Wo, tiles_z, tiles_y, tiles_x;
@@ -332,7 +315,7 @@ __device__ __forceinline__ void red_add4(float* p, float a, float b, float c, fl
 // One block per tile of TILE_Z x TILE_Y x TILE_X output points of one
 // sample; 8 lanes per point, lane j holding channels c0 + 4j .. + 3 of each
 // chunk of 32.
-__global__ void __launch_bounds__(BWD_THREADS, WARP_BWD_MIN_BLOCKS) warp3d_backward_kernel(
+__global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS) warp3d_backward_kernel(
     const float* __restrict__ vol_cl, const float* __restrict__ grid,
     const float* __restrict__ gout, float* __restrict__ acc, float* __restrict__ ggrid,
     BwdShape sh) {
@@ -451,12 +434,12 @@ extern "C" int warp3d_backward(const void* vol, const void* grid, const void* gr
   const BwdShape sh{C,  Cp, D,  H,  W, Do, Ho, Wo, (Do + TILE_Z - 1) / TILE_Z,
                     (Ho + TILE_Y - 1) / TILE_Y, (Wo + TILE_X - 1) / TILE_X};
   const int64_t tiles = (int64_t)B * sh.tiles_z * sh.tiles_y * sh.tiles_x;
-  err = launch_after_prior(warp3d_backward_kernel, dim3((unsigned)tiles), dim3(BWD_THREADS), 0, s,
+  err = launch_after_prior(warp3d_backward_kernel, dim3((unsigned)tiles), dim3(BWD_THREADS), s,
                            static_cast<const float*>(vol_cl), static_cast<const float*>(grid),
                            static_cast<const float*>(grad_out),
                            acc, static_cast<float*>(grad_grid), sh);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_after_prior(bwd_finish_kernel, tgrid, dim3(TT, 8), 0, s,
+  return (int)launch_after_prior(bwd_finish_kernel, tgrid, dim3(TT, 8), s,
                                  static_cast<const float*>(acc), static_cast<float*>(grad_vol),
                                  C, Cp, S);
 }

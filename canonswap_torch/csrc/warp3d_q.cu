@@ -193,13 +193,13 @@ cudaError_t launch(const void* vol, const void* grid, void* out, int8_t* q, floa
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 qgrid((unsigned)((points + QP - 1) / QP), (unsigned)B);
-  err = launch_after_prior(quantize_act_kernel<VT>, qgrid, dim3(256), 0, s, v, amax, q, C, Cp,
+  err = launch_after_prior(quantize_act_kernel<VT>, qgrid, dim3(256), s, v, amax, q, C, Cp,
                            points);
   if (err != cudaSuccess) return err;
   // two threads per output point
   const dim3 ggrid((unsigned)((2 * (int64_t)P + GATHER_THREADS - 1) / GATHER_THREADS),
                    (unsigned)B);
-  return launch_after_prior(warp3d_q_kernel<VT, GT>, ggrid, dim3(GATHER_THREADS), 0, s, q, amax,
+  return launch_after_prior(warp3d_q_kernel<VT, GT>, ggrid, dim3(GATHER_THREADS), s, q, amax,
                             static_cast<const GT*>(grid), static_cast<VT*>(out), C, Cp, D, H, W,
                             P);
 }

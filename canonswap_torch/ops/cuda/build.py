@@ -59,17 +59,13 @@ class CudaKernel:
 
     ``launches`` counts the launches made through :meth:`launch_on`; a caller
     that wants to show a code path went through the kernel resets it to 0
-    before the path and reads it after.  ``defines`` (``NAME=value``) are
-    passed to nvcc as ``-D`` flags: a measurement builds variants of a
-    source's compile-time constants this way; the port's kernels take none.
+    before the path and reads it after.
     """
 
-    def __init__(self, source: str, symbol: str, argtypes: list,
-                 defines: tuple[str, ...] = ()):
+    def __init__(self, source: str, symbol: str, argtypes: list):
         self.source = CSRC / source
         self.symbol = symbol
         self.argtypes = argtypes
-        self.flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
         self.launches = 0
         self.build_seconds: float | None = None  # None: loaded, not built
         self.build_log = ""
@@ -79,7 +75,7 @@ class CudaKernel:
     def _library_path(self) -> Path:
         headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
         key = hashlib.sha256(
-            self.source.read_bytes() + headers + " ".join(self.flags).encode()
+            self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.source.stem}_{key}.so"
 
@@ -90,7 +86,7 @@ class CudaKernel:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.stem}.tmp{os.getpid()}.so")
         proc = subprocess.Popen(
-            [_nvcc(), *self.flags, "-o", str(tmp), str(self.source)],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         return proc, tmp, lib, time.perf_counter()
 

@@ -111,6 +111,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -2483,6 +2484,20 @@ def mixed_grid(b, d, h, w, gen, device):
     return torch.where(pick, rand, grid).to(device).contiguous()
 
 
+def turned_grid(b, d, h, w, turn=0.2, scale=0.9, shift=0.05):
+    """The cell centres turned by ``turn`` rad about z, scaled and shifted:
+    a smooth field whose neighbouring points fall on neighbouring voxels
+    (a head turning)."""
+    axes = [(torch.arange(n, dtype=torch.float64) + 0.5) / n * 2 - 1
+            for n in (d, h, w)]
+    zz, yy, xx = torch.meshgrid(*axes, indexing="ij")
+    cos, sin = math.cos(turn), math.sin(turn)
+    gx = scale * (cos * xx - sin * yy) + shift
+    gy = scale * (sin * xx + cos * yy) + shift
+    grid = torch.stack([gx, gy, zz * scale + shift], -1)[None]
+    return grid.expand(b, -1, -1, -1, -1).float().contiguous()
+
+
 def time_warp_bwd(vol, grid, gout, plain: bool = True) -> dict:
     """The backward kernel timed beside the plain version (its forward and
     backward; in turns: plain, kernel, kernel, plain), the library backward
@@ -2550,8 +2565,6 @@ def phase_warp_bwd_kernel() -> dict:
     once the autograd engine had run on the card, a later profiler pass
     saw no device event.  The training step's own fields are checked and
     timed in phase_train_step."""
-    from canonswap_torch.tools.warp_bwd_sweep import turned_grid
-
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(30)
     cases, timings = [], {}

@@ -23,6 +23,8 @@ installed:
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -306,6 +308,19 @@ def smooth(b, d, h, w, scale, seed, kinks=False):
     return grid if kinks else avoid_kinks(grid, (w, h, d))
 
 
+def turned_grid(b, d, h, w, turn=0.2, scale=0.9, shift=0.05):
+    """The cell centres turned by ``turn`` rad about z, scaled and shifted:
+    a smooth field whose neighbouring points fall on neighbouring voxels."""
+    axes = [(torch.arange(n, dtype=torch.float64) + 0.5) / n * 2 - 1
+            for n in (d, h, w)]
+    zz, yy, xx = torch.meshgrid(*axes, indexing="ij")
+    cos, sin = math.cos(turn), math.sin(turn)
+    gx = scale * (cos * xx - sin * yy) + shift
+    gy = scale * (sin * xx + cos * yy) + shift
+    grid = torch.stack([gx, gy, zz * scale + shift], -1)[None]
+    return grid.expand(b, -1, -1, -1, -1).float().contiguous()
+
+
 BWD_CASES = {
     # (vol shape, field, its range or displacement, output grid (Do, Ho, Wo)
     # where it differs from the volume's)
@@ -340,8 +355,6 @@ def bwd_case(name):
         return case(vshape, (b, *(out or (d, h, w)), 3), r, seed=5)
     vol, _ = case(vshape, (1, 1, 1, 1, 3), 1.0, seed=3)
     if kind == "turned":
-        from canonswap_torch.tools.warp_bwd_sweep import turned_grid
-
         return vol, avoid_kinks(turned_grid(b, d, h, w), (w, h, d))
     if kind == "outside":
         g = torch.rand((b, d, h, w, 3),
