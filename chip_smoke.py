@@ -441,7 +441,9 @@ def phase_warp_q_kernel() -> dict:
                 "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
                 "exact_kernel_ms": exact, "bound_ms": bound,
                 "bound_by": bound_by, "max_abs_err": abs_err,
-                "parts_ms": device_parts_ms(call), "graph_ms": graph_ms(call),
+                "parts_ms": device_parts_ms(
+                    call, complete=lambda events: len(events) == 4),
+                "graph_ms": graph_ms(call),
                 "host_us": host_us(call)}
     emit("kernel_vs_plain", kernel="warp3d_q", cases=cases,
          timings_b8=timings, worst_max_abs_err=worst, ok=True)
@@ -538,26 +540,31 @@ def phase_qconv_kernel() -> dict:
     return {"timings": timings, "worst": worst}
 
 
-def device_parts_ms(fn, calls: int = 1) -> list:
+def device_parts_ms(fn, calls: int = 1, complete=None, passes: int = 3
+                    ) -> list:
     """[kernel name, device ms] of every device event of ``calls`` calls of
-    ``fn``, in time order, from one torch.profiler pass.  A pass of one
-    call runs first and is thrown away: on the card a process's first pass
-    recorded some of the kernels, or none."""
+    ``fn``, in time order, from one torch.profiler pass.  A pass that
+    ``complete`` (by default: any event at all) refuses is taken again, up
+    to ``passes`` passes: on the card a pass has recorded only some of the
+    kernels, or none, the first pass of a process most often."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for n in (1, calls):
+    for _ in range(passes):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-    dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
-    if not dev:
-        raise AssertionError("profile: no device event")
-    return [[e.name[:60], e.time_range.elapsed_us() / 1e3] for e in dev]
+        dev = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        events = [[e.name[:60], e.time_range.elapsed_us() / 1e3] for e in dev]
+        if complete(events) if complete else events:
+            return events
+    raise AssertionError(f"profile: {passes} passes, the last recorded "
+                         f"{events}")
 
 
 # the W8A8 conv's parts, in launch order, by a substring of their CUDA
@@ -571,29 +578,16 @@ def qconv_parts_ms(calls: dict) -> dict:
     """Device ms of each part of one W8A8 conv call, by kernel name, for
     each ``{label: fn}``: one torch.profiler pass over one call of each fn;
     the device events, in time order, fall into calls of five parts."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    def complete(events):
+        return len(events) == len(QCONV_PARTS) * len(calls) and all(
+            sub in name for (name, _), (_, sub) in
+            zip(events, QCONV_PARTS * len(calls)))
 
-    for fn in calls.values():
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for fn in calls.values():
-            fn()
-        torch.cuda.synchronize()
-    dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
-    names = [e.name for e in dev]
-    if len(dev) != len(QCONV_PARTS) * len(calls) or not all(
-            sub in name for name, (_, sub) in
-            zip(names, QCONV_PARTS * len(calls))):
-        raise AssertionError(f"qconv profile: device events {names}")
-    out = {}
-    for i, label in enumerate(calls):
-        out[label] = {part: dev[i * len(QCONV_PARTS) + j].time_range
-                      .elapsed_us() / 1e3
-                      for j, (part, _) in enumerate(QCONV_PARTS)}
-    return out
+    events = device_parts_ms(lambda: [fn() for fn in calls.values()],
+                             complete=complete)
+    return {label: {part: events[i * len(QCONV_PARTS) + j][1]
+                    for j, (part, _) in enumerate(QCONV_PARTS)}
+            for i, label in enumerate(calls)}
 
 
 def qconv_sites(cfg) -> int:
@@ -2466,13 +2460,15 @@ def warp_bwd_parts_ms(fn, calls: int = 5) -> dict:
     """Device ms of each of the backward's kernels: the median over
     ``calls`` calls of ``fn`` in one torch.profiler pass, with how many of
     each the pass recorded."""
-    events = device_parts_ms(fn, calls)
-    seen = {part: [ms for name, ms in events if sub in name]
-            for part, sub in WARP_BWD_PARTS}
-    if not all(seen.values()):
-        raise AssertionError(f"warp_bwd parts: a kernel missing in {events}")
-    return {**{part: float(np.median(v)) for part, v in seen.items()},
-            "recorded": {part: len(v) for part, v in seen.items()}}
+    def seen(events):
+        return {part: [ms for name, ms in events if sub in name]
+                for part, sub in WARP_BWD_PARTS}
+
+    parts = seen(device_parts_ms(
+        fn, calls, complete=lambda events: all(
+            len(v) == calls for v in seen(events).values())))
+    return {**{part: float(np.median(v)) for part, v in parts.items()},
+            "recorded": {part: len(v) for part, v in parts.items()}}
 
 
 def mixed_grid(b, d, h, w, gen, device):

@@ -56,6 +56,7 @@ def train_fields() -> list:
     core = C.CanonSwapCore(CANONICAL, seed=0, device="cpu")
     S.hold_keypoints(core, gen)
     core.to(dev)
+    T.trainable(core)
     frames = torch.rand((b, s, s, 3), generator=gen).to(dev)
     sid = torch.randn((b, CANONICAL.swap.latent_dim), generator=gen).to(dev)
     shares: list = []
