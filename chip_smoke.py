@@ -540,13 +540,19 @@ def phase_qconv_kernel() -> dict:
     return {"timings": timings, "worst": worst}
 
 
+# device cycles of the spin kernel that opens every parts pass (about 0.5
+# ms on an H100): the first events of a pass were sometimes lost
+PARTS_SPIN_CYCLES = 1_000_000
+
+
 def device_parts_ms(fn, calls: int = 1, complete=None, passes: int = 3
                     ) -> list:
     """[kernel name, device ms] of every device event of ``calls`` calls of
-    ``fn``, in time order, from one torch.profiler pass.  A pass that
-    ``complete`` (by default: any event at all) refuses is taken again, up
-    to ``passes`` passes: on the card a pass has recorded only some of the
-    kernels, or none, the first pass of a process most often."""
+    ``fn``, in time order, from one torch.profiler pass.  On the card a
+    pass has lost its first events (up to two kernels, in processes that
+    lost them in every pass), so the pass opens with a spin kernel of its
+    own, left out of the result; a pass that ``complete`` (by default: any
+    event at all) refuses is taken again, up to ``passes`` passes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -554,11 +560,13 @@ def device_parts_ms(fn, calls: int = 1, complete=None, passes: int = 3
     torch.cuda.synchronize()
     for _ in range(passes):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(PARTS_SPIN_CYCLES)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         dev = sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA),
+                      if e.device_type == DeviceType.CUDA
+                      and "spin_kernel" not in e.name),
                      key=lambda e: e.time_range.start)
         events = [[e.name[:60], e.time_range.elapsed_us() / 1e3] for e in dev]
         if complete(events) if complete else events:
