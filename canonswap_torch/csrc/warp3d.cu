@@ -198,14 +198,16 @@ cudaError_t launch(const void* vol, const void* grid, void* out, int B, int C, i
 // operations (grid, grad_out, then per corner a load and a RED), so the
 // warps resident per SM set its time, not the bytes or the REDs' count.
 //
-// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py's warp_bwd_kernel,
-// PERF.md section 6 row 9), whole call at CANONICAL B=8 f32: 0.352 ms on the
-// noisy smooth field, 0.369 on the random one, 0.339 on a turned one (a
-// head turning), against 1.248, 1.977 and 0.853 for
-// aten::grid_sampler_3d_backward.  On the training step's seeded,
-// near-identity fields the library is faster (0.27 to 0.29 against 0.34):
-// there its NCDHW atomics from neighbouring threads fall on one line, and
-// this design pays its 0.13 ms layout round trip.  Tried there and dropped:
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md section 6 row 9), whole
+// call at CANONICAL B=8 f32: 0.352 ms on the noisy smooth field, 0.374 on
+// the random one, 0.342 on a turned one (a head turning), against 1.225,
+// 2.084 and 0.849 for the first backward kernel (one thread per point,
+// scalar f32 atomics into a zeroed NCDHW grad_vol) and 1.247, 1.972 and
+// 0.850 for aten::grid_sampler_3d_backward.  On the training step's seeded,
+// near-identity fields it takes 0.339 and 0.342 against the first kernel's
+// 0.356 and 0.373, but the library is faster (0.275 and 0.291): there its
+// NCDHW atomics from neighbouring threads fall on one line, and this design
+// pays its 0.13 ms layout round trip.  Tried and dropped:
 //   - a per-tile box of grad_vol in shared memory, flushed with one RED per
 //     box voxel and 4 channels, in two forms (f32 shared atomics; the
 //     tile's (point, corner) pairs sorted by voxel): 1.3 to 1.9x slower on
@@ -220,7 +222,7 @@ cudaError_t launch(const void* vol, const void* grid, void* out, int B, int C, i
 //   - returning acc as a channels_last_3d grad_vol, without finish: the
 //     consumer's copy to NCDHW (PyTorch's) takes 0.144 ms, finish 0.059.
 //
-// Constants, chosen there by timing variants of this source built with
+// Constants, chosen on the card by timing variants of this source built with
 // other values: tiles of 1 x 4 x 32 points (rows of 32 along x:
 // neighbouring lanes read and RED neighbouring lines), blocks of 256
 // threads (4 passes of 32 points), at most 80 registers with 3 blocks per
