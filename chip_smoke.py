@@ -541,24 +541,25 @@ def phase_qconv_kernel() -> dict:
 
 
 # device cycles of the spin kernel that opens every parts pass (about 0.5
-# ms on an H100): the first events of a pass were sometimes lost
+# ms on an H100): the first events of a pass were sometimes lost; and the
+# passes taken before a pass that still lacks a kernel fails the phase
 PARTS_SPIN_CYCLES = 1_000_000
+PARTS_PASSES = 3
 
 
-def device_parts_ms(fn, calls: int = 1, complete=None, passes: int = 3
-                    ) -> list:
+def device_parts_ms(fn, calls: int = 1, complete=None) -> list:
     """[kernel name, device ms] of every device event of ``calls`` calls of
     ``fn``, in time order, from one torch.profiler pass.  On the card a
     pass has lost its first events (up to two kernels, in processes that
     lost them in every pass), so the pass opens with a spin kernel of its
     own, left out of the result; a pass that ``complete`` (by default: any
-    event at all) refuses is taken again, up to ``passes`` passes."""
+    event at all) refuses is taken again, up to PARTS_PASSES passes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(passes):
+    for _ in range(PARTS_PASSES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(PARTS_SPIN_CYCLES)
             for _ in range(calls):
@@ -571,7 +572,7 @@ def device_parts_ms(fn, calls: int = 1, complete=None, passes: int = 3
         events = [[e.name[:60], e.time_range.elapsed_us() / 1e3] for e in dev]
         if complete(events) if complete else events:
             return events
-    raise AssertionError(f"profile: {passes} passes, the last recorded "
+    raise AssertionError(f"profile: {PARTS_PASSES} passes, the last recorded "
                          f"{events}")
 
 
